@@ -1,10 +1,10 @@
 """Carry the reference's weights and state across to the port.
 
-The JAX package's `Params`, `Buffers` and `DecodedScene` come in as nested
-numpy arrays (for example `jax.tree.map(np.asarray, params)`), read by field
-name, and go out as the port's objects on `device`. The reference's
-`Linear.w` is [in, out]; `nn.Linear.weight` is [out, in], so it is
-transposed.
+The JAX package's `Params`, `Buffers`, `AdamState` and `DecodedScene` come
+in as nested numpy arrays (for example `jax.tree.map(np.asarray, params)`),
+read by field name, and go out as the port's objects on `device`. The
+reference's `Linear.w` is [in, out]; `nn.Linear.weight` is [out, in], so it
+is transposed.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from contextgs_tpu_torch.compression.codec import DecodedScene
 from contextgs_tpu_torch.config import ModelConfig
 from contextgs_tpu_torch.device import resolve_device
 from contextgs_tpu_torch.models.mlps import MLP, DecoderMLPs
-from contextgs_tpu_torch.models.state import Buffers, Params
+from contextgs_tpu_torch.models.state import Buffers, Params, param_leaves
+from contextgs_tpu_torch.train.optim import AdamState
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -75,6 +76,16 @@ def buffers_from_numpy(buffers, device=None) -> Buffers:
     dev = resolve_device(device)
     return Buffers(**{name: _tensor(getattr(buffers, name), dev)
                       for name in Buffers._fields})
+
+
+def adam_from_numpy(adam, cfg: ModelConfig, device=None) -> AdamState:
+    """Reference `AdamState` (mu and nu are Params trees, count a scalar) →
+    the port's, keyed as `state.param_leaves`."""
+    def moments(tree):
+        return param_leaves(params_from_numpy(tree, cfg, device))
+
+    return AdamState(mu=moments(adam.mu), nu=moments(adam.nu),
+                     count=int(np.asarray(adam.count)))
 
 
 def decoded_scene_from_numpy(dec, cfg: ModelConfig,

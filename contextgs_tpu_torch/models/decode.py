@@ -1,10 +1,10 @@
 """Neural gaussian decode: anchors + MLPs → per-gaussian attributes (port of
 `contextgs_tpu/models/decode.py`).
 
-The view-conditioned Scaffold-GS decode. As in the reference, all N·K
-gaussian slots are returned and culled ones carry opacity 0 (the rasterizer's
-1/255 rule skips them); the decoded-scene renderer compacts the visible
-anchors first, as the CUDA reference does.
+The view-conditioned Scaffold-GS decode. As in the reference, the
+gaussian slots of every anchor decoded are returned and culled ones carry
+opacity 0 (the rasterizer's 1/255 rule skips them); the renderers decode only
+the visible anchors (`anchor_index`), as the CUDA reference does.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from contextgs_tpu_torch.config import ModelConfig, OptimizationConfig
 from contextgs_tpu_torch.models import state as st
 from contextgs_tpu_torch.models.mlps import (apply_color, apply_cov,
                                              apply_feature_bank, apply_opacity)
+from contextgs_tpu_torch.models.quant import uniform_noise_quant
 
 
 class NeuralGaussians(NamedTuple):
@@ -107,23 +108,43 @@ def generate_neural_gaussians(
     visible_mask: torch.Tensor,       # [N] bool from prefilter (∧ alive)
     generator: torch.Generator | None = None,
     *,
-    phase: str,                       # "plain" (ported) | "noise" | "context"
+    phase: str,                       # "plain" | "noise" | "context"
     training: bool,
+    anchor_index: torch.Tensor | None = None,
 ) -> tuple[NeuralGaussians, DecodeAux]:
-    """Training-schedule switchyard; this slice ports phase="plain" (raw
-    parameters: steps ≤ 3000, or a decoded-version eval)."""
-    if phase == "noise":
-        raise NotImplementedError(
-            'phase="noise" comes with the training slice '
-            "(ROADMAP.md queue 1, slice 2)")
+    """Training-schedule switchyard.
+
+    phase="plain": raw parameters (step ≤ 3000, or a decoded-version eval);
+    phase="noise": uniform noise at base Q on feat, grid scaling and offsets,
+    drawn from `generator` in that order over all N anchors, whether or not
+    `training` is set (the reference does the same); phase="context" comes
+    with slice 3. With `anchor_index`, only those anchors are decoded (the
+    noise is still drawn for all N, so a draw does not depend on the view)
+    and the result covers their len(anchor_index)·K slots."""
     if phase == "context":
         raise NotImplementedError(
             'phase="context" comes with the context and entropy slice '
             "(ROADMAP.md queue 1, slice 3)")
-    if phase != "plain":
+    if phase not in ("plain", "noise"):
         raise ValueError(f"unknown phase {phase!r}")
+    anchor_q = st.get_anchor(params, buffers)
+    feat = params.anchor_feat
+    grid_scaling = st.get_scaling(params)
+    grid_offsets = params.offsets
+    if phase == "noise":
+        feat = uniform_noise_quant(feat, cfg.q_feat, generator)
+        grid_scaling = uniform_noise_quant(grid_scaling, cfg.q_scaling,
+                                           generator)
+        grid_offsets = uniform_noise_quant(grid_offsets, cfg.q_offsets,
+                                           generator)
+    binary_mask = st.get_mask(params)
+    if anchor_index is not None:
+        feat, grid_scaling, grid_offsets, anchor_q, binary_mask, \
+            visible_mask = (x[anchor_index] for x in (
+                feat, grid_scaling, grid_offsets, anchor_q, binary_mask,
+                visible_mask))
     ng = decode_neural_gaussians(
-        params, buffers, cfg, camera_center, visible_mask,
-        feat=params.anchor_feat, grid_scaling=st.get_scaling(params),
-        grid_offsets=params.offsets, anchor=st.get_anchor(params, buffers))
+        params, buffers, cfg, camera_center, visible_mask, feat=feat,
+        grid_scaling=grid_scaling, grid_offsets=grid_offsets, anchor=anchor_q,
+        binary_mask=binary_mask)
     return ng, DecodeAux(rate=None, context=None)

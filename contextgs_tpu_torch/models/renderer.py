@@ -1,8 +1,14 @@
 """Scene rendering: prefilter → neural gaussian decode → tile rasterization
-(port of `contextgs_tpu/models/renderer.py`, forward).
+(port of `contextgs_tpu/models/renderer.py`), differentiable.
 
 The device is that of the scene's tensors; camera fields may be numpy arrays
-or tensors and are moved there.
+or tensors and are moved there. Only the anchors that pass the prefilter are
+decoded and rasterized, as the CUDA reference does; the per-gaussian outputs
+(`gaussians`, `radii`, `visibility`) are scattered back to the reference's
+N·K slots, with the slots of the other anchors zero (culled), and a
+`screen_dummy` of N·K rows receives its gradient in those slots. Images,
+gradients and densification statistics equal the reference's static-shape
+path, where those slots are culled too.
 """
 
 from __future__ import annotations
@@ -55,6 +61,11 @@ def prefilter_voxel(params: st.Params, buffers: st.Buffers, cam: dict,
     return vis & buffers.alive
 
 
+def _to_slots(x: torch.Tensor, slots: torch.Tensor, nk: int) -> torch.Tensor:
+    """Rows of the decoded slots → [N·K, ...], zero elsewhere."""
+    return x.new_zeros((nk,) + x.shape[1:]).index_copy(0, slots, x)
+
+
 def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
            opt: OptimizationConfig, pipe: PipelineConfig, cam: dict,
            width: int, height: int, bg: torch.Tensor,
@@ -63,33 +74,42 @@ def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
            visible_mask: torch.Tensor | None = None,
            screen_dummy: torch.Tensor | None = None,
            scale_modifier=1.0) -> RenderOutput:
-    """Render one view. Forward only in this port slice: `training=True`
-    needs the backward kernel of the training slice."""
+    """Render one view; differentiable in the parameters and `screen_dummy`
+    ([N·K, 2], the densification hook). `generator` draws the noise phase's
+    noise."""
     if pipe.tile_size != rz.TILE:
         raise ValueError(f"the port rasterizes {rz.TILE}x{rz.TILE} tiles, "
                          f"got pipe.tile_size={pipe.tile_size}")
-    if training:
-        raise NotImplementedError(
-            "render(training=True) needs the tile-blend backward, which comes "
-            "with the training slice (ROADMAP.md queue 1, slice 2)")
-    cam = camera_tensors(cam, params.anchor.device)
+    dev = params.anchor.device
+    cam = camera_tensors(cam, dev)
     if visible_mask is None:
         visible_mask = prefilter_voxel(params, buffers, cam, width, height)
+    k = cfg.n_offsets
+    nk = params.offsets.shape[0] * k
+    index = torch.nonzero(visible_mask).squeeze(1)
+    slots = (index[:, None] * k + torch.arange(k, device=dev)).reshape(-1)
 
     ng, aux = generate_neural_gaussians(
         params, buffers, cfg, opt, cam["camera_center"], visible_mask,
-        generator, phase=phase, training=training)
+        generator, phase=phase, training=training, anchor_index=index)
+    if screen_dummy is not None:
+        screen_dummy = screen_dummy[slots]
 
     out = rz.rasterize(
         ng.xyz, ng.scaling, ng.rot, ng.color, ng.opacity,
         world_view=cam["world_view"], full_proj=cam["full_proj"],
         tanfovx=cam["tanfovx"], tanfovy=cam["tanfovy"],
-        width=width, height=height, bg=bg.to(params.anchor.device),
+        width=width, height=height, bg=bg.to(dev),
         valid=ng.gauss_valid, screen_dummy=screen_dummy,
         scale_modifier=scale_modifier)
 
-    return RenderOutput(image=out.image, final_t=out.final_t, gaussians=ng,
-                        radii=out.radii, visibility=out.visibility, aux=aux,
-                        overflowed=out.overflowed,
+    gaussians = NeuralGaussians(
+        *(_to_slots(x, slots, nk) for x in ng[:-1]),
+        anchor_visible=visible_mask)
+    return RenderOutput(image=out.image, final_t=out.final_t,
+                        gaussians=gaussians,
+                        radii=_to_slots(out.radii, slots, nk),
+                        visibility=_to_slots(out.visibility, slots, nk),
+                        aux=aux, overflowed=out.overflowed,
                         vis_overflowed=out.vis_overflowed,
                         n_instances=out.n_instances, n_vis=out.n_vis)

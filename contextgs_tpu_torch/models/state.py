@@ -54,6 +54,29 @@ class SceneModel(NamedTuple):
     buffers: Buffers
 
 
+# the Params fields indexed by anchor slot (the pool's rows)
+ANCHOR_FIELDS = ("anchor", "anchor_feat", "hyper_latent", "offsets",
+                 "mask_logit", "scaling_log", "rotation", "opacity_raw")
+
+
+def param_leaves(params: Params) -> dict:
+    """Every optimized tensor by name, in a fixed order: the anchor fields,
+    then the MLPs' parameters as `mlps.<module path>`, then the prior's
+    tensors as `prior.<name>.<i>` (when present). The leaves share storage
+    with `params`, so writing into them updates the model."""
+    leaves = {name: getattr(params, name) for name in ANCHOR_FIELDS}
+    for name, p in params.mlps.named_parameters():
+        leaves[f"mlps.{name}"] = p.data
+    for name, tensors in (params.prior or {}).items():
+        for i, x in enumerate(tensors):
+            leaves[f"prior.{name}.{i}"] = x
+    return leaves
+
+
+def n_alive(model: SceneModel) -> int:
+    return int(model.buffers.alive.sum())
+
+
 def get_scaling(params: Params) -> torch.Tensor:
     return torch.exp(params.scaling_log)
 

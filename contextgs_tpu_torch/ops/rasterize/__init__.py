@@ -1,9 +1,16 @@
-"""Rasterizer API, forward (port of `contextgs_tpu/ops/rasterize/__init__.py`).
+"""Differentiable rasterizer API (port of
+`contextgs_tpu/ops/rasterize/__init__.py`).
 
 `rasterize(...)` projects the gaussians, bins and depth-sorts their tile
-instances and blends the tiles. The backend follows the tensors: on CUDA
-tensors the blend is the hand-written kernel K1 (`tile_kernel.blend_forward`),
-on CPU tensors its plain version (`reference.blend_tiles_reference`).
+instances and blends the tiles. The blend is a `torch.autograd.Function`
+(`_TileBlend`, the counterpart of the reference's `_pack_blend` custom VJP):
+its forward is K1 (`tile_kernel.blend_forward`) and its backward K2
+(`tile_kernel.blend_backward`), which gives dL/d rows [G,9]; autograd of the
+plain PyTorch `splat_rows` and `project_gaussians` carries that on to the
+means, scales, quats, colors, opacities and `screen_dummy`. The backend
+follows the tensors: on CUDA tensors the hand-written kernels run, on CPU
+tensors their plain versions (`reference.blend_tiles_reference` and
+`reference.blend_tiles_backward_reference`).
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ from contextgs_tpu_torch.ops.rasterize.projection import (ProjectedGaussians,
                                                           visible_filter)
 from contextgs_tpu_torch.ops.rasterize.sorting import (TileInstances,
                                                        expand_and_sort)
-from contextgs_tpu_torch.ops.rasterize.tile_kernel import TILE, blend_forward
+from contextgs_tpu_torch.ops.rasterize.tile_kernel import (TILE,
+                                                           blend_backward,
+                                                           blend_forward)
 
 __all__ = ["rasterize", "visible_filter", "project_gaussians",
            "expand_and_sort", "splat_rows", "RasterOutput",
@@ -43,6 +52,29 @@ def splat_rows(proj: ProjectedGaussians, colors: torch.Tensor,
                      dim=1)
 
 
+class _TileBlend(torch.autograd.Function):
+    """rows [G,9] → (rgb [3,H,W], final_T [H,W]); K1 forward, K2 backward.
+
+    `blend_forward` and `blend_backward` are looked up in this module when
+    called, so that a caller may wrap them (chip_smoke.py times them so)."""
+
+    @staticmethod
+    def forward(ctx, rows, gauss_ids, tile_bounds, width, height, t_eps):
+        rgb, final_t, last = blend_forward(rows, gauss_ids, tile_bounds,
+                                           width, height, t_eps)
+        ctx.save_for_backward(rows, gauss_ids, tile_bounds, rgb, final_t,
+                              last)
+        ctx.dims = (width, height, t_eps)
+        return rgb, final_t
+
+    @staticmethod
+    def backward(ctx, d_rgb, d_final_t):
+        width, height, t_eps = ctx.dims
+        d_rows = blend_backward(*ctx.saved_tensors, d_rgb.contiguous(),
+                                d_final_t.contiguous(), width, height, t_eps)
+        return d_rows, None, None, None, None, None
+
+
 def rasterize(
     means3d: torch.Tensor,      # [G,3]
     scales: torch.Tensor,       # [G,3]
@@ -62,7 +94,7 @@ def rasterize(
     screen_dummy: torch.Tensor | None = None,
     t_eps: float | None = None,
 ) -> RasterOutput:
-    """Tile rasterization of 3D gaussians (forward).
+    """Differentiable tile rasterization of 3D gaussians.
 
     `valid` force-culls gaussian slots. `screen_dummy` is the densification
     hook of the reference: added to the projected means scaled by
@@ -77,7 +109,7 @@ def rasterize(
                                  dtype=means3d.dtype, device=means3d.device)
         proj = proj._replace(means2d=proj.means2d + screen_dummy * ndc_scale)
     inst = expand_and_sort(proj, tiles_x, tiles_y)
-    img, final_t, _ = blend_forward(
+    img, final_t = _TileBlend.apply(
         splat_rows(proj, colors, opacities), inst.gauss_ids, inst.tile_bounds,
         width, height, T_EPS if t_eps is None else t_eps)
     image = img + final_t[None] * bg[:, None, None]

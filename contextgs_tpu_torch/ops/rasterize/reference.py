@@ -1,4 +1,5 @@
-"""Plain PyTorch tile blend: the reference for the CUDA kernel K1 (port of
+"""Plain PyTorch tile blend and its gradient: the references for the CUDA
+kernels K1 and K2 (port of
 `contextgs_tpu/ops/rasterize/reference.py::blend_reference`).
 
 Every tile's depth-ordered instance list is laid out as a padded
@@ -10,6 +11,9 @@ prefixes and lose the precision the T·(1-α) ≥ 1e-4 decision needs. As in the
 reference, the include decision is made on a first pass and the recurrence
 recomputed with excluded alphas zeroed. Tiles go through in groups whose
 padded block stays under `max_elems`, so a full-size frame fits on the card.
+
+The gradient (`blend_tiles_backward_reference`) is autograd through the same
+group blend, one group at a time, so its memory is that of one group.
 """
 
 from __future__ import annotations
@@ -22,6 +26,9 @@ from contextgs_tpu_torch.ops.rasterize.projection import ProjectedGaussians
 from contextgs_tpu_torch.ops.rasterize.sorting import TileInstances
 
 MAX_ELEMS = 1 << 26    # padded (instance, pixel) pairs per tile group
+WARP = 32              # pixels of a tile that one warp of K1/K2 walks
+PAIR_KEYS = ("evaluated", "exp", "tested", "blended", "bwd_evaluated",
+             "bwd_exp", "bwd_blended", "bwd_warp_blended")
 
 
 def _tile_groups(lens: list, pix: int, max_elems: int):
@@ -35,6 +42,93 @@ def _tile_groups(lens: list, pix: int, max_elems: int):
         l_max = l_new
     if lens:
         yield t0, len(lens), l_max
+
+
+def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
+                 width, height, t_eps, pairs):
+    """Blend tiles [t0, t1), lists padded to L → (rgb [3,nt,pix], final_T
+    [nt,pix], last_contrib [nt,pix]); adds the group's pair counts to
+    `pairs` unless it is None."""
+    dev = rows.device
+    pix = tile_size * tile_size
+    kx = torch.arange(pix, device=dev) % tile_size
+    ky = torch.arange(pix, device=dev) // tile_size
+    t = torch.arange(t0, t1, device=dev)
+    pos = torch.arange(L, device=dev)
+    valid = pos[None, :] < (bounds[t0 + 1:t1 + 1] - bounds[t0:t1])[:, None]
+    idx = torch.where(valid, bounds[t0:t1, None] + pos[None, :], 0)
+    r = rows[gauss_ids[idx].to(torch.int64)]              # [nt, L, 9]
+    px = ((t % tiles_x) * tile_size)[:, None] + kx[None, :]
+    py = ((t // tiles_x) * tile_size)[:, None] + ky[None, :]
+    dx = r[..., 0, None] - px[:, None, :].to(rows.dtype)  # [nt, L, pix]
+    dy = r[..., 1, None] - py[:, None, :].to(rows.dtype)
+    power = gaussian_power(dx, dy, r[..., 2, None], r[..., 3, None],
+                           r[..., 4, None])
+    alpha = alpha_from_power(power, r[..., 5, None])
+    alpha = torch.where(valid[..., None], alpha, 0.0)
+    exp_taken = power <= 0.0 if pairs is not None else None
+    del dx, dy, power
+
+    with torch.no_grad():
+        lg0 = torch.log1p(-alpha)
+        t_before = torch.exp(torch.cumsum(lg0, 1) - lg0)
+        include = t_before * (1.0 - alpha) >= t_eps
+        del lg0, t_before
+    if pairs is not None:
+        # the walk stops at the first blendable instance that fails
+        fail = (alpha > 0) & ~include
+        n_eval = torch.where(fail.any(1), fail.to(torch.int8).argmax(1) + 1,
+                             valid.sum(1, keepdim=True))
+        inside = (px < width) & (py < height)
+        walked = (pos[None, :, None] < n_eval[:, None, :]) & inside[:, None]
+        for key, mask in (("evaluated", walked),
+                          ("exp", walked & exp_taken),
+                          ("tested", walked & (alpha > 0)),
+                          ("blended", walked & (alpha > 0) & include)):
+            pairs[key] += int(mask.sum())
+        del walked
+    alpha = torch.where(include, alpha, 0.0)
+    lg = torch.log1p(-alpha)
+    w = alpha * torch.exp(torch.cumsum(lg, 1) - lg)        # [nt, L, pix]
+    rgb = torch.einsum("tlc,tlp->ctp", r[..., 6:9], w)
+    final_t = torch.exp(lg.sum(1))
+    with torch.no_grad():
+        blended = alpha > 0
+        last = (blended * (pos + 1)[None, :, None]).amax(1).to(torch.int32)
+    if pairs is not None:
+        # the backward walks each in-image pixel's list up to last_contrib
+        bwd = (pos[None, :, None] < last[:, None, :]) & inside[:, None]
+        bwd_blended = bwd & blended
+        pairs["bwd_evaluated"] += int(bwd.sum())
+        pairs["bwd_exp"] += int((bwd & exp_taken).sum())
+        pairs["bwd_blended"] += int(bwd_blended.sum())
+        pairs["bwd_warp_blended"] += int(bwd_blended.reshape(
+            t1 - t0, L, pix // WARP, WARP).any(-1).sum())
+    return rgb, final_t, last
+
+
+def _tiles_x(width: int, tile_size: int) -> int:
+    return (width + tile_size - 1) // tile_size
+
+
+def _untile(x, tiles_x, tile_size, width, height):
+    """[..., n_tiles, pix] → [..., H, W]."""
+    tiles_y = x.shape[-2] // tiles_x
+    x = x.reshape(x.shape[:-2] + (tiles_y, tiles_x, tile_size, tile_size))
+    x = x.transpose(-3, -2)
+    x = x.reshape(x.shape[:-4] + (tiles_y * tile_size, tiles_x * tile_size))
+    return x[..., :height, :width]
+
+
+def _tile(x, tiles_x, tiles_y, tile_size):
+    """[..., H, W] → [..., n_tiles, pix], zeros past the image's edge."""
+    h, w = x.shape[-2:]
+    x = torch.nn.functional.pad(x, (0, tiles_x * tile_size - w,
+                                    0, tiles_y * tile_size - h))
+    x = x.reshape(x.shape[:-2] + (tiles_y, tile_size, tiles_x, tile_size))
+    x = x.transpose(-3, -2)
+    return x.reshape(x.shape[:-4] + (tiles_y * tiles_x,
+                                     tile_size * tile_size))
 
 
 def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
@@ -52,71 +146,65 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
     front-to-back walk reaches before each pixel is done — the work this data
     needs: `evaluated` (power computed), `exp` (power ≤ 0, so the exp is
     taken), `tested` (alpha ≥ 1/255, so T·(1-α) is tested) and `blended`
-    (included in the pixel)."""
+    (included in the pixel); and those the backward walks, list positions up
+    to `last_contrib`: `bwd_evaluated`, `bwd_exp`, `bwd_blended`, and
+    `bwd_warp_blended`, the (warp of 32 pixels, instance) pairs with at least
+    one pixel blended, each of which costs K2 nine atomics."""
     dev = rows.device
     n_tiles = tile_bounds.numel() - 1
     pix = tile_size * tile_size
-    tiles_y = n_tiles // tiles_x
     rgb_t = torch.zeros((3, n_tiles, pix), dtype=rows.dtype, device=dev)
     final_t = torch.ones((n_tiles, pix), dtype=rows.dtype, device=dev)
     last_t = torch.zeros((n_tiles, pix), dtype=torch.int32, device=dev)
-    pairs = dict(evaluated=0, exp=0, tested=0, blended=0)
-    kx = torch.arange(pix, device=dev) % tile_size
-    ky = torch.arange(pix, device=dev) // tile_size
+    pairs = dict.fromkeys(PAIR_KEYS, 0) if count_pairs else None
     bounds = tile_bounds.to(torch.int64)
     lens = (bounds[1:] - bounds[:-1]).tolist()
     for t0, t1, L in _tile_groups(lens, pix, max_elems):
         if L == 0:
             continue
-        t = torch.arange(t0, t1, device=dev)
-        pos = torch.arange(L, device=dev)
-        valid = pos[None, :] < (bounds[t0 + 1:t1 + 1] - bounds[t0:t1])[:, None]
-        idx = torch.where(valid, bounds[t0:t1, None] + pos[None, :], 0)
-        r = rows[gauss_ids[idx].to(torch.int64)]              # [nt, L, 9]
-        px = ((t % tiles_x) * tile_size)[:, None] + kx[None, :]
-        py = ((t // tiles_x) * tile_size)[:, None] + ky[None, :]
-        dx = r[..., 0, None] - px[:, None, :].to(rows.dtype)  # [nt, L, pix]
-        dy = r[..., 1, None] - py[:, None, :].to(rows.dtype)
-        power = gaussian_power(dx, dy, r[..., 2, None], r[..., 3, None],
-                               r[..., 4, None])
-        alpha = alpha_from_power(power, r[..., 5, None])
-        alpha = torch.where(valid[..., None], alpha, 0.0)
-        exp_taken = power <= 0.0 if count_pairs else None
-        del dx, dy, power
-
-        lg = torch.log1p(-alpha)
-        t_before = torch.exp(torch.cumsum(lg, 1) - lg)
-        include = t_before * (1.0 - alpha) >= t_eps
-        if count_pairs:
-            # the walk stops at the first blendable instance that fails
-            fail = (alpha > 0) & ~include
-            n_eval = torch.where(fail.any(1),
-                                 fail.to(torch.int8).argmax(1) + 1,
-                                 valid.sum(1, keepdim=True))
-            inside = (px < width) & (py < height)
-            walked = (pos[None, :, None] < n_eval[:, None, :]) & inside[:, None]
-            for key, mask in (("evaluated", walked),
-                              ("exp", walked & exp_taken),
-                              ("tested", walked & (alpha > 0)),
-                              ("blended", walked & (alpha > 0) & include)):
-                pairs[key] += int(mask.sum())
-            del walked, exp_taken
-        alpha = torch.where(include, alpha, 0.0)
-        lg = torch.log1p(-alpha)
-        w = alpha * torch.exp(torch.cumsum(lg, 1) - lg)        # [nt, L, pix]
-        rgb_t[:, t0:t1] = torch.einsum("tlc,tlp->ctp", r[..., 6:9], w)
-        final_t[t0:t1] = torch.exp(lg.sum(1))
-        last_t[t0:t1] = ((alpha > 0) * (pos + 1)[None, :, None]).amax(1).to(
-            torch.int32)
-
-    def untile(x):                                        # [..., n_tiles, pix]
-        x = x.reshape(x.shape[:-2] + (tiles_y, tiles_x, tile_size, tile_size))
-        x = x.transpose(-3, -2)
-        x = x.reshape(x.shape[:-4] + (tiles_y * tile_size, tiles_x * tile_size))
-        return x[..., :height, :width]
-
-    out = (untile(rgb_t), untile(final_t), untile(last_t))
+        rgb_t[:, t0:t1], final_t[t0:t1], last_t[t0:t1] = _blend_group(
+            rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size, width,
+            height, t_eps, pairs)
+    out = tuple(_untile(x, tiles_x, tile_size, width, height)
+                for x in (rgb_t, final_t, last_t))
     return out + (pairs,) if count_pairs else out
+
+
+def blend_tiles_backward_reference(rows, gauss_ids, tile_bounds, rgb, final_t,
+                                   last_contrib, d_rgb, d_final_t, width: int,
+                                   height: int, t_eps: float = T_EPS,
+                                   tile_size: int = 16,
+                                   max_elems: int = MAX_ELEMS) -> torch.Tensor:
+    """dL/d rows [G,9] of `blend_tiles_reference` for the cotangents d_rgb
+    [3,H,W] and d_final_t [H,W]: the plain version of K2, with the same
+    signature as `tile_kernel.blend_backward`.
+
+    Autograd through the plain blend, recomputed tile group by tile group;
+    the forward's outputs (rgb, final_t, last_contrib) are not read, since
+    the recomputation gives them again. Peak memory is about that of one
+    group's autograd graph, a few tens of float32 [max_elems] tensors."""
+    del rgb, final_t, last_contrib
+    n_tiles = tile_bounds.numel() - 1
+    tiles_x = _tiles_x(width, tile_size)
+    tiles_y = n_tiles // tiles_x
+    pix = tile_size * tile_size
+    d_rgb_t = _tile(d_rgb, tiles_x, tiles_y, tile_size)
+    d_ft_t = _tile(d_final_t, tiles_x, tiles_y, tile_size)
+    d_rows = torch.zeros_like(rows)
+    bounds = tile_bounds.to(torch.int64)
+    lens = (bounds[1:] - bounds[:-1]).tolist()
+    with torch.enable_grad():
+        for t0, t1, L in _tile_groups(lens, pix, max_elems):
+            if L == 0:
+                continue
+            r = rows.detach().requires_grad_(True)
+            rgb_g, ft_g, _ = _blend_group(r, gauss_ids, bounds, t0, t1, L,
+                                          tiles_x, tile_size, width, height,
+                                          t_eps, None)
+            s = ((rgb_g * d_rgb_t[:, t0:t1]).sum()
+                 + (ft_g * d_ft_t[t0:t1]).sum())
+            d_rows += torch.autograd.grad(s, r)[0]
+    return d_rows
 
 
 def blend_reference(proj: ProjectedGaussians, inst: TileInstances,
@@ -126,7 +214,7 @@ def blend_reference(proj: ProjectedGaussians, inst: TileInstances,
     """(image [3,H,W], final transmittance [H,W]), the JAX signature.
 
     `t_eps` overrides the early-termination threshold, as in the reference."""
-    tiles_x = (width + tile_size - 1) // tile_size
+    tiles_x = _tiles_x(width, tile_size)
     rows = torch.cat([proj.means2d, proj.conics, opacities[:, None], colors], 1)
     image, final_t, _ = blend_tiles_reference(
         rows, inst.gauss_ids, inst.tile_bounds, width, height, tiles_x,

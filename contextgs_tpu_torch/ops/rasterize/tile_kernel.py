@@ -1,10 +1,15 @@
-"""K1, the tile-blend forward: wrapper of `csrc/blend_forward.cu` (replaces
-`contextgs_tpu/ops/rasterize/tile_kernel.py::blend_forward_pallas`).
+"""The tile-blend kernels: K1, the forward, wrapping `csrc/blend_forward.cu`
+(replaces `contextgs_tpu/ops/rasterize/tile_kernel.py::blend_forward_pallas`),
+and K2, its backward, wrapping `csrc/blend_backward.cu` (replaces
+`blend_backward_pallas`).
 
-On a CUDA tensor the wrapper launches the hand-written kernel, or raises; on
-a CPU tensor it runs the kernel's plain version,
-`reference.blend_tiles_reference`. It never falls back from one to the other.
-`launches` counts the kernel's launches in this process.
+Each wrapper checks device, dtype, shape and contiguity and raises on
+anything else. On a CUDA tensor it then launches its hand-written kernel, or
+raises; on a CPU tensor it runs the kernel's plain version,
+`reference.blend_tiles_reference` and
+`reference.blend_tiles_backward_reference`. It never falls back from one to
+the other. `launches` and `backward_launches` count the kernels' launches in
+this process.
 """
 
 from __future__ import annotations
@@ -16,23 +21,61 @@ import torch
 
 from contextgs_tpu_torch.ops.cuda_build import load_library
 from contextgs_tpu_torch.ops.rasterize.common import T_EPS
-from contextgs_tpu_torch.ops.rasterize.reference import blend_tiles_reference
+from contextgs_tpu_torch.ops.rasterize.reference import (
+    blend_tiles_backward_reference, blend_tiles_reference)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "blend_forward.cu"
-TILE = 16          # the kernel's tile side: one 256-thread block per tile
+BACKWARD_SOURCE = SOURCE.with_name("blend_backward.cu")
+SOURCES = (SOURCE, BACKWARD_SOURCE)
+TILE = 16          # the kernels' tile side: one 256-thread block per tile
 ROW = 9            # mean xy, conic abc, opacity, rgb
 
 launches = 0
+backward_launches = 0
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library(SOURCE)
-    fn = lib.blend_forward
+def _function(source: Path, name: str, argtypes: list):
+    fn = getattr(load_library(source), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                       + [ctypes.c_float] + [ctypes.c_void_p] * 4)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def _check(name: str, device, tensors) -> None:
+    """Raise unless every (label, tensor, dtype, shape) lies contiguous on
+    `device` with that dtype and shape."""
+    for label, x, dtype, shape in tensors:
+        if x.device != device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                             f"tensor on {device}, got {x.dtype} on "
+                             f"{x.device}")
+        if shape is not None and tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {label} must have shape {shape}, got "
+                             f"{tuple(x.shape)}")
+
+
+def _grid(width: int, height: int):
+    tiles_x = (width + TILE - 1) // TILE
+    tiles_y = (height + TILE - 1) // TILE
+    return tiles_x, tiles_x * tiles_y
+
+
+def _check_lists(name, rows, gauss_ids, tile_bounds, n_tiles, width, height):
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {rows.device}")
+    if rows.dim() != 2 or rows.shape[1] != ROW:
+        raise ValueError(f"{name}: rows must be [G,{ROW}], "
+                         f"got {tuple(rows.shape)}")
+    if gauss_ids.dim() != 1 or tuple(tile_bounds.shape) != (n_tiles + 1,):
+        raise ValueError(f"{name}: gauss_ids must be 1-D and tile_bounds "
+                         f"[{n_tiles + 1}] for {width}x{height}, got "
+                         f"{tuple(gauss_ids.shape)} and "
+                         f"{tuple(tile_bounds.shape)}")
+    _check(name, rows.device, (("rows", rows, torch.float32, None),
+                               ("gauss_ids", gauss_ids, torch.int32, None),
+                               ("tile_bounds", tile_bounds, torch.int32,
+                                None)))
 
 
 def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
@@ -42,29 +85,12 @@ def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     [n_tiles+1] i32 over 16x16 tiles → (rgb [3,H,W], final_T [H,W],
     last_contrib [H,W] i32)."""
     global launches
-    tiles_x = (width + TILE - 1) // TILE
-    tiles_y = (height + TILE - 1) // TILE
-    n_tiles = tiles_x * tiles_y
+    tiles_x, n_tiles = _grid(width, height)
+    _check_lists("blend_forward", rows, gauss_ids, tile_bounds, n_tiles,
+                 width, height)
     if rows.device.type == "cpu":
         return blend_tiles_reference(rows, gauss_ids, tile_bounds, width,
                                      height, tiles_x, TILE, t_eps)
-    if rows.device.type != "cuda":
-        raise ValueError(f"blend_forward: unsupported device {rows.device}")
-    for name, x, dtype in (("rows", rows, torch.float32),
-                           ("gauss_ids", gauss_ids, torch.int32),
-                           ("tile_bounds", tile_bounds, torch.int32)):
-        if x.device != rows.device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"blend_forward: {name} must be a contiguous "
-                             f"{dtype} tensor on {rows.device}, got "
-                             f"{x.dtype} on {x.device}")
-    if rows.dim() != 2 or rows.shape[1] != ROW:
-        raise ValueError(f"blend_forward: rows must be [G,{ROW}], "
-                         f"got {tuple(rows.shape)}")
-    if gauss_ids.dim() != 1 or tuple(tile_bounds.shape) != (n_tiles + 1,):
-        raise ValueError(f"blend_forward: gauss_ids must be 1-D and "
-                         f"tile_bounds [{n_tiles + 1}] for {width}x{height}, "
-                         f"got {tuple(gauss_ids.shape)} and "
-                         f"{tuple(tile_bounds.shape)}")
     rgb = torch.empty((3, height, width), dtype=torch.float32,
                       device=rows.device)
     final_t = torch.empty((height, width), dtype=torch.float32,
@@ -72,15 +98,60 @@ def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     last = torch.empty((height, width), dtype=torch.int32, device=rows.device)
     if n_tiles == 0:
         return rgb, final_t, last
-    lib = _library()
+    fn = _function(SOURCE, "blend_forward",
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 4)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = lib.blend_forward(rows.data_ptr(), gauss_ids.data_ptr(),
-                                tile_bounds.data_ptr(), width, height, tiles_x,
-                                n_tiles, t_eps, rgb.data_ptr(),
-                                final_t.data_ptr(), last.data_ptr(), stream)
+        err = fn(rows.data_ptr(), gauss_ids.data_ptr(), tile_bounds.data_ptr(),
+                 width, height, tiles_x, n_tiles, t_eps, rgb.data_ptr(),
+                 final_t.data_ptr(), last.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"blend_forward: kernel launch failed with CUDA "
                            f"error {err}")
     launches += 1
     return rgb, final_t, last
+
+
+def blend_backward(rows: torch.Tensor, gauss_ids: torch.Tensor,
+                   tile_bounds: torch.Tensor, rgb: torch.Tensor,
+                   final_t: torch.Tensor, last_contrib: torch.Tensor,
+                   d_rgb: torch.Tensor, d_final_t: torch.Tensor, width: int,
+                   height: int, t_eps: float = T_EPS) -> torch.Tensor:
+    """The gradient of `blend_forward`: its inputs and outputs, and the
+    cotangents d_rgb [3,H,W] and d_final_t [H,W] f32 → d_rows [G,9] f32.
+
+    K2 reads `last_contrib` for where each pixel stopped; `t_eps` is read
+    only by the plain version, which recomputes the forward."""
+    global backward_launches
+    tiles_x, n_tiles = _grid(width, height)
+    _check_lists("blend_backward", rows, gauss_ids, tile_bounds, n_tiles,
+                 width, height)
+    hw, chw = (height, width), (3, height, width)
+    _check("blend_backward", rows.device,
+           (("rgb", rgb, torch.float32, chw),
+            ("final_t", final_t, torch.float32, hw),
+            ("last_contrib", last_contrib, torch.int32, hw),
+            ("d_rgb", d_rgb, torch.float32, chw),
+            ("d_final_t", d_final_t, torch.float32, hw)))
+    if rows.device.type == "cpu":
+        return blend_tiles_backward_reference(
+            rows, gauss_ids, tile_bounds, rgb, final_t, last_contrib, d_rgb,
+            d_final_t, width, height, t_eps, TILE)
+    d_rows = torch.zeros_like(rows)
+    if n_tiles == 0:
+        return d_rows
+    fn = _function(BACKWARD_SOURCE, "blend_backward",
+                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 2)
+    with torch.cuda.device(rows.device):
+        stream = torch.cuda.current_stream(rows.device).cuda_stream
+        err = fn(rows.data_ptr(), gauss_ids.data_ptr(), tile_bounds.data_ptr(),
+                 rgb.data_ptr(), final_t.data_ptr(), last_contrib.data_ptr(),
+                 d_rgb.data_ptr(), d_final_t.data_ptr(), width, height,
+                 tiles_x, n_tiles, d_rows.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"blend_backward: kernel launch failed with CUDA "
+                           f"error {err}")
+    backward_launches += 1
+    return d_rows

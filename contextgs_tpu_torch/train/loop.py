@@ -1,0 +1,210 @@
+"""Host-side training orchestration (port of `contextgs_tpu/train/loop.py`).
+
+Random camera order from a numpy Generator, the per-phase schedule,
+densification every `update_interval` steps inside (update_from,
+update_until) except in [3000, 4000), pool growth when densification runs
+out of free slots, the `test_iterations` evaluation, logging, checkpoints and
+resume.
+
+The reference's static-shape machinery — the instance budget, `vis_cap` and
+their watermark adaptation — has no counterpart: the port's shapes are
+dynamic. The context phase (slice 3) and `save_iterations` snapshots with a
+`model_path` (the ply writer, slice 5) raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from contextgs_tpu_torch.config import TrainConfig
+from contextgs_tpu_torch.device import resolve_device
+from contextgs_tpu_torch.models import densify, state as st
+from contextgs_tpu_torch.models.state import Buffers, SceneModel
+from contextgs_tpu_torch.ops.ssim import psnr as psnr_fn
+from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
+from contextgs_tpu_torch.train.optim import AdamState, init_adam
+from contextgs_tpu_torch.train.step import make_eval_render, make_train_step
+from contextgs_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                  save_checkpoint)
+
+log = logging.getLogger("contextgs_tpu_torch")
+
+EVAL_SEED = 0xE7A1    # eval noise is drawn outside the training stream
+
+
+@dataclass
+class TrainerState:
+    model: SceneModel
+    adam: AdamState
+    voxel_size: float
+    spatial_lr_scale: float
+    generator: torch.Generator          # noise and densification draws
+    level_scales: Optional[list] = None
+    iteration: int = 0
+    rng: np.random.Generator = field(
+        default_factory=lambda: np.random.default_rng(0))
+
+
+def phase_of(it: int, cfg: TrainConfig) -> str:
+    if it <= cfg.opt.noise_from:
+        return "plain"
+    if it <= cfg.opt.context_from:
+        return "noise"
+    return "context"
+
+
+def grow_capacity(model: SceneModel, adam: AdamState,
+                  new_capacity: int) -> tuple[SceneModel, AdamState]:
+    """Pool enlargement: pads the anchor-indexed tensors with zeros."""
+    n = model.buffers.alive.shape[0]
+    extra = new_capacity - n
+    if extra <= 0:
+        return model, adam
+
+    def pad(x):
+        if x.dim() >= 1 and x.shape[0] == n:
+            return torch.cat([x, x.new_zeros((extra,) + x.shape[1:])])
+        return x
+
+    params = model.params._replace(**{f: pad(getattr(model.params, f))
+                                      for f in st.ANCHOR_FIELDS})
+    buffers = Buffers(*(pad(x) for x in model.buffers))
+
+    def pad_moments(moments):
+        return {name: pad(x) if name in st.ANCHOR_FIELDS else x
+                for name, x in moments.items()}
+
+    adam = AdamState(mu=pad_moments(adam.mu), nu=pad_moments(adam.nu),
+                     count=adam.count)
+    return SceneModel(params, buffers), adam
+
+
+def _to_image(cam, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.transpose(cam.image, (2, 0, 1)))).to(dev)
+
+
+def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
+          callback=None) -> TrainerState:
+    """Run the optimization on `device` (default: the CUDA card); returns
+    the final trainer state. `callback(it, ts, metrics)` runs after every
+    step."""
+    dev = resolve_device(device)
+    opt = cfg.opt
+    model, voxel_size = st.init_scene_model(
+        scene.points, cfg.model,
+        generator=torch.Generator().manual_seed(cfg.seed), device=dev)
+    ts = TrainerState(model=model, adam=init_adam(model.params),
+                      voxel_size=voxel_size, spatial_lr_scale=scene.radius,
+                      generator=torch.Generator(dev).manual_seed(cfg.seed),
+                      rng=np.random.default_rng(cfg.seed))
+    order: list = []
+    if cfg.start_checkpoint:
+        params, buffers, ts.adam, meta = load_checkpoint(
+            cfg.start_checkpoint, model.params, dev)
+        ts.model = model = SceneModel(params, buffers)
+        ts.voxel_size = meta["voxel_size"]
+        ts.level_scales = meta["level_scales"]
+        ts.spatial_lr_scale = meta["spatial_lr_scale"]
+        ts.iteration = meta["iteration"]
+        ts.rng.bit_generator.state = meta["rng_state"]
+        ts.generator.set_state(meta["generator_state"])
+        order = list(meta["cam_order"])
+        log.info("resumed from %s at iteration %d", cfg.start_checkpoint,
+                 ts.iteration)
+    snapshots = [s for s in cfg.save_iterations
+                 if ts.iteration < s <= opt.iterations]
+    if cfg.model_path and snapshots:
+        raise NotImplementedError(
+            f"save_iterations {snapshots} with a model_path write a "
+            "point_cloud.ply snapshot, which comes with the drivers slice "
+            "(ROADMAP.md queue 1, slice 5); use checkpoint_iterations")
+    log.info("init: %d anchors (capacity %d), voxel_size=%.6f",
+             st.n_alive(model), model.buffers.alive.shape[0], ts.voxel_size)
+
+    cams = scene.train_cameras
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                      else [0.0, 0.0, 0.0], dtype=torch.float32, device=dev)
+    cam_dicts = [c.as_device_dict() for c in cams]
+    gts = [_to_image(c, dev) for c in cams]
+    step_fns: dict = {}
+    eval_fns: dict = {}
+
+    t_start = time.time()
+    for it in range(ts.iteration + 1, opt.iterations + 1):
+        ts.iteration = it
+        phase = phase_of(it, cfg)
+        if not order:
+            order = [int(i) for i in ts.rng.permutation(len(cams))]
+        ci = order.pop()
+
+        lk = (phase, cams[ci].width, cams[ci].height)
+        if lk not in step_fns:
+            step_fns[lk] = make_train_step(cfg, lk[1], lk[2], phase,
+                                           ts.spatial_lr_scale)
+        params, buffers, adam, metrics = step_fns[lk](
+            model.params, model.buffers, ts.adam, cam_dicts[ci], gts[ci], bg,
+            it, opt.start_stat < it < opt.update_until, ts.generator)
+        ts.model = model = SceneModel(params, buffers)
+        ts.adam = adam
+
+        if (opt.update_from < it < opt.update_until
+                and it % opt.update_interval == 0
+                and not (3000 <= it < 4000)):
+            res = densify.adjust_anchors(model.params, model.buffers, ts.adam,
+                                         cfg.model, opt, ts.voxel_size,
+                                         ts.generator)
+            ts.model = model = SceneModel(res.params, res.buffers)
+            ts.adam = res.adam
+            log.info("iter %d densify: grown %d, pruned %d, anchors %d", it,
+                     int(res.n_grown), int(res.n_pruned), st.n_alive(model))
+            if bool(res.overflowed):
+                cap = model.buffers.alive.shape[0] * 2
+                log.warning("anchor pool full at iter %d → growing to %d",
+                            it, cap)
+                model, ts.adam = grow_capacity(model, ts.adam, cap)
+                ts.model = model
+
+        if callback is not None:
+            callback(it, ts, metrics)
+        if it in cfg.test_iterations and scene.test_cameras:
+            # eval noise from its own generator: enabling test_iterations
+            # does not perturb the training draws
+            gen = torch.Generator(dev).manual_seed(EVAL_SEED * 100_003 + it)
+            psnrs = []
+            for c in scene.test_cameras:
+                ek = (phase, c.width, c.height)
+                if ek not in eval_fns:
+                    eval_fns[ek] = make_eval_render(cfg, c.width, c.height,
+                                                    phase)
+                img = eval_fns[ek](model.params, model.buffers,
+                                   c.as_device_dict(), bg, gen)
+                psnrs.append(float(psnr_fn(img, _to_image(c, dev))))
+            log.info("iter %d test [%s]: PSNR %.3f over %d views", it, phase,
+                     float(np.mean(psnrs)), len(psnrs))
+        if it % cfg.log_every == 0:
+            log.info("iter %d [%s]: loss=%.5f psnr=%.2f bpp=%.4f anchors=%d",
+                     it, phase, float(metrics.loss), float(metrics.psnr),
+                     float(metrics.bit_per_param), st.n_alive(model))
+
+        if it in cfg.checkpoint_iterations and cfg.model_path:
+            os.makedirs(cfg.model_path, exist_ok=True)
+            save_checkpoint(
+                os.path.join(cfg.model_path, f"chkpnt{it}.pt"), model.params,
+                model.buffers, ts.adam,
+                dict(iteration=it, voxel_size=ts.voxel_size,
+                     level_scales=ts.level_scales,
+                     spatial_lr_scale=ts.spatial_lr_scale,
+                     rng_state=ts.rng.bit_generator.state,
+                     generator_state=ts.generator.get_state(),
+                     cam_order=list(order)))
+
+    log.info("training done in %.1fs", time.time() - t_start)
+    return ts

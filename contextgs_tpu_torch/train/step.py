@@ -1,0 +1,129 @@
+"""Training step: render → loss → gradients → Adam → densification statistics
+(port of `contextgs_tpu/train/step.py`).
+
+loss = lmbda_rec·((1−λ_ssim)·L1 + λ_ssim·(1−SSIM)) + scaling_reg_weight·Π̄scaling
+over the valid gaussians. The plain and noise phases are ported; the context
+phase (rate loss, mask regulariser) comes with slice 3 and raises. The
+densification statistics come from the gradient of a zero `screen_dummy`
+added to the projected means, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from contextgs_tpu_torch.config import TrainConfig
+from contextgs_tpu_torch.models import densify
+from contextgs_tpu_torch.models.renderer import render
+from contextgs_tpu_torch.models.state import ANCHOR_FIELDS, Buffers, Params
+from contextgs_tpu_torch.ops.ssim import l1_loss, psnr, ssim
+from contextgs_tpu_torch.train.optim import AdamState, adam_update
+
+PHASES = ("plain", "noise")
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor
+    l1: torch.Tensor
+    psnr: torch.Tensor
+    bit_per_param: torch.Tensor
+    n_visible_gauss: torch.Tensor
+    overflowed: bool             # always False: instance lists are dynamic
+    vis_overflowed: bool         # always False: no visible-gaussian cap
+    n_instances: int             # tile-instance count
+    n_vis: torch.Tensor          # gaussians touching >= 1 tile
+
+
+def _check_phase(phase: str) -> None:
+    if phase == "context":
+        raise NotImplementedError(
+            'the training phase "context" (rate loss, level maps) comes with '
+            "the context and entropy slice (ROADMAP.md queue 1, slice 3)")
+    if phase not in PHASES:
+        raise ValueError(f"unknown phase {phase!r}")
+
+
+def make_train_step(cfg: TrainConfig, width: int, height: int, phase: str,
+                    spatial_lr_scale: float):
+    """The step of one (phase, resolution):
+    `step(params, buffers, adam, cam, gt_image, bg, it, with_stats,
+    generator=None) -> (params, buffers, adam, metrics)`. Parameters and
+    Adam moments are updated in place (see `adam_update`); `with_stats` is a
+    Python bool; `generator` draws the noise phase's noise."""
+    _check_phase(phase)
+    mcfg, opt, pipe = cfg.model, cfg.opt, cfg.pipe
+
+    def step(params: Params, buffers: Buffers, adam: AdamState, cam: dict,
+             gt_image: torch.Tensor, bg: torch.Tensor, it: int,
+             with_stats: bool, generator: torch.Generator | None = None):
+        leaves = {name: getattr(params, name).detach().requires_grad_(True)
+                  for name in ANCHOR_FIELDS}
+        leaves.update((f"mlps.{name}", p)
+                      for name, p in params.mlps.named_parameters())
+        p = params._replace(**{name: leaves[name] for name in ANCHOR_FIELDS})
+        nk = params.offsets.shape[0] * mcfg.n_offsets
+        screen_dummy = torch.zeros((nk, 2), dtype=torch.float32,
+                                   device=params.anchor.device,
+                                   requires_grad=True)
+
+        out = render(p, buffers, mcfg, opt, pipe, cam, width, height, bg,
+                     generator, phase=phase, training=True,
+                     screen_dummy=screen_dummy)
+        l1 = l1_loss(out.image, gt_image)
+        ssim_v = ssim(out.image, gt_image)
+        gv = out.gaussians.gauss_valid
+        # three products, not torch.prod: the undecoded slots are zero, and
+        # prod's backward then takes a cumprod over all N·K rows
+        sc = out.gaussians.scaling
+        prod3 = sc[:, 0] * sc[:, 1] * sc[:, 2]
+        scaling_reg = (torch.where(gv, prod3, 0.0).sum()
+                       / torch.clamp(gv.sum(), min=1))
+        loss = (opt.lmbda_rec * ((1.0 - opt.lambda_dssim) * l1
+                                 + opt.lambda_dssim * (1.0 - ssim_v))
+                + opt.scaling_reg_weight * scaling_reg)
+
+        names = list(leaves)
+        grads = torch.autograd.grad(loss, [leaves[n] for n in names]
+                                    + [screen_dummy], allow_unused=True)
+        screen_grad = grads[-1]
+        grads = {n: g for n, g in zip(names, grads[:-1]) if g is not None}
+
+        if with_stats:
+            g = out.gaussians
+            buffers = densify.accumulate_stats(
+                buffers, g.neural_opacity.detach(), g.gauss_valid,
+                out.visibility, g.anchor_visible,
+                torch.zeros_like(screen_dummy) if screen_grad is None
+                else screen_grad, mcfg.n_offsets)
+
+        params, adam = adam_update(params, grads, adam, opt, it,
+                                   spatial_lr_scale)
+        with torch.no_grad():
+            metrics = StepMetrics(
+                loss=loss.detach(), l1=l1.detach(),
+                psnr=psnr(out.image.detach(), gt_image),
+                bit_per_param=torch.zeros((), device=loss.device),
+                n_visible_gauss=gv.sum(), overflowed=out.overflowed,
+                vis_overflowed=out.vis_overflowed,
+                n_instances=out.n_instances, n_vis=out.n_vis)
+        return params, buffers, adam, metrics
+
+    return step
+
+
+def make_eval_render(cfg: TrainConfig, width: int, height: int, phase: str):
+    """Eval-time render `run(params, buffers, cam, bg, generator=None) ->
+    image [3,H,W]`. In the noise phase it draws noise from `generator`, as
+    the reference's eval render does."""
+    _check_phase(phase)
+    mcfg, opt, pipe = cfg.model, cfg.opt, cfg.pipe
+
+    @torch.no_grad()
+    def run(params: Params, buffers: Buffers, cam: dict, bg: torch.Tensor,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+        return render(params, buffers, mcfg, opt, pipe, cam, width, height,
+                      bg, generator, phase=phase, training=False).image
+
+    return run

@@ -24,6 +24,8 @@ from contextgs_tpu_torch import evaluation as teval
 from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import ssim as tssim
 from contextgs_tpu_torch.scene.cameras import Camera as TCamera
+from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
+from contextgs_tpu_torch.train import loop as tloop
 
 torch.set_num_threads(1)
 
@@ -152,8 +154,12 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     dec_t = convert.decoded_scene_from_numpy(dec_np, cfg_t.model, "cpu")
     img = np.zeros((3, 4, 4), np.float32)
     pts = np.random.default_rng(0).uniform(-1, 1, (50, 3))
+    scene = SceneInfo(points=pts, colors=np.zeros_like(pts),
+                      normals=np.zeros_like(pts), train_cameras=[],
+                      test_cameras=[])
     calls = [
         lambda: teval.make_decoded_renderer(dec_t, cfg_t, W, H),
+        lambda: tloop.train(cfg_t, scene),
         lambda: teval.evaluate_images([img], [img]),
         lambda: tst.init_scene_model(pts, cfg_t.model),
         lambda: convert.decoded_scene_from_numpy(dec_np, cfg_t.model),

@@ -1,4 +1,5 @@
-"""The port's CUDA kernel K1 (tile-blend forward) against its plain version.
+"""The port's CUDA kernels K1 (tile-blend forward) and K2 (its backward)
+against their plain versions.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -108,20 +109,23 @@ def test_plain_version_pair_counts_match_a_walk():
     _, _, last, got = tref.blend_tiles_reference(
         *(torch.from_numpy(x) for x in (rows, ids, bounds)), w, h, 2,
         count_pairs=True)
-    want = dict(evaluated=0, exp=0, tested=0, blended=0)
+    want = dict.fromkeys(tref.PAIR_KEYS, 0)
+    warp_blended = set()                # (tile, warp, list position)
     r = rows.astype(np.float64)
     for y in range(h):
         for x in range(w):
             tile = (y // 16) * 2 + x // 16
-            T, n_last = 1.0, 0
+            T, n_last, walk = 1.0, 0, []
             for k in range(bounds[tile], bounds[tile + 1]):
                 mx, my, a, b, cc, op = r[ids[k], :6]
                 dx, dy = mx - x, my - y
                 power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
                 want["evaluated"] += 1
+                walk.append("evaluated")
                 if power > 0:
                     continue
                 want["exp"] += 1
+                walk[-1] = "exp"
                 alpha = min(0.99, op * np.exp(power))
                 if alpha < 1 / 255:
                     continue
@@ -129,9 +133,19 @@ def test_plain_version_pair_counts_match_a_walk():
                 if T * (1 - alpha) < 1e-4:
                     break
                 want["blended"] += 1
+                walk[-1] = "blended"
                 T *= 1 - alpha
                 n_last = k - bounds[tile] + 1
             assert last[y, x] == n_last
+            # the backward replays the list up to last_contrib
+            for pos, how in enumerate(walk[:n_last]):
+                want["bwd_evaluated"] += 1
+                want["bwd_exp"] += how != "evaluated"
+                if how == "blended":
+                    want["bwd_blended"] += 1
+                    warp_blended.add((tile, ((y % 16) * 16 + x % 16) // 32,
+                                      pos))
+    want["bwd_warp_blended"] = len(warp_blended)
     assert got == want
 
 
@@ -191,3 +205,132 @@ def test_blend_forward_kernel_matches_plain_version(case):
     np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
     if case == "chunk_boundary":
         assert float(got[0][1].abs().max()) == 0.0
+
+
+def _cotangents(rng, width, height):
+    d_rgb = rng.normal(size=(3, height, width)).astype(np.float32)
+    d_ft = rng.normal(size=(height, width)).astype(np.float32)
+    return torch.from_numpy(d_rgb), torch.from_numpy(d_ft)
+
+
+def _autograd_rows(rows, ids, bounds, width, height, d_rgb, d_ft,
+                   t_eps=1e-4):
+    """dL/d rows by autograd through the whole plain forward at once."""
+    r = rows.detach().clone().requires_grad_(True)
+    rgb, ft, _ = tref.blend_tiles_reference(r, ids, bounds, width, height,
+                                            (width + 15) // 16, t_eps=t_eps)
+    loss = (rgb * d_rgb).sum() + (ft * d_ft).sum()
+    return torch.autograd.grad(loss, r)[0]
+
+
+@pytest.mark.parametrize("max_elems", [256 * 300, 1 << 26])
+def test_blend_backward_cpu_takes_plain_version(max_elems):
+    """On CPU tensors K2's wrapper runs the plain version (autograd through
+    the plain blend, group by group) and launches nothing."""
+    rng = np.random.default_rng(4)
+    rows, ids, bounds = (torch.from_numpy(x)
+                         for x in _random_rows(rng, TILES_X, 2, 200))
+    d_rgb, d_ft = _cotangents(rng, W, H)
+    rgb, ft, last = tile_kernel.blend_forward(rows, ids, bounds, W, H)
+    before = tile_kernel.backward_launches
+    got = tile_kernel.blend_backward(rows, ids, bounds, rgb, ft, last, d_rgb,
+                                     d_ft, W, H)
+    assert tile_kernel.backward_launches == before
+    grouped = tref.blend_tiles_backward_reference(
+        rows, ids, bounds, rgb, ft, last, d_rgb, d_ft, W, H,
+        max_elems=max_elems)
+    want = _autograd_rows(rows, ids, bounds, W, H, d_rgb, d_ft)
+    assert got.shape == rows.shape and float(want.abs().max()) > 0
+    for g in (got, grouped):     # groups may sum in another order
+        np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_blend_backward_rejects_bad_inputs():
+    rows, ids, bounds = (torch.from_numpy(x) for x in _chunk_boundary_rows())
+    rgb, ft, last = tile_kernel.blend_forward(rows, ids, bounds, 16, 16)
+    d_rgb, d_ft = torch.zeros_like(rgb), torch.zeros_like(ft)
+    good = dict(rows=rows, gauss_ids=ids, tile_bounds=bounds, rgb=rgb,
+                final_t=ft, last_contrib=last, d_rgb=d_rgb, d_final_t=d_ft,
+                width=16, height=16)
+    for change, match in (
+            (dict(rows=rows.to("meta")), "unsupported device"),
+            (dict(rows=rows.double()), "rows must be a contiguous"),
+            (dict(rows=rows[:, :8]), r"rows must be \[G,9\]"),
+            (dict(gauss_ids=ids.long()), "gauss_ids must be a contiguous"),
+            (dict(tile_bounds=bounds[:1]), "tile_bounds"),
+            (dict(last_contrib=last.float()), "last_contrib must be"),
+            (dict(d_rgb=d_rgb.transpose(1, 2)), "d_rgb must be a contiguous"),
+            (dict(d_final_t=d_ft[:8]), "d_final_t must have shape"),
+            (dict(rgb=rgb[:2]), "rgb must have shape")):
+        with pytest.raises(ValueError, match=match):
+            tile_kernel.blend_backward(**dict(good, **change))
+
+
+def _envelope_error(got, rows, ids, bounds, width, height, d_rgb, d_ft,
+                    delta=2e-4):
+    """Largest distance of `got` outside the envelope of the plain gradients
+    at t_eps·(1-δ), t_eps, t_eps·(1+δ), in units of each component's largest
+    |grad| (a borderline include decision may flip between K1's sequential
+    product and the plain version's log-space prefix)."""
+    grads = [tref.blend_tiles_backward_reference(
+        rows, ids, bounds, None, None, None, d_rgb, d_ft, width, height,
+        t_eps=1e-4 * f) for f in (1 - delta, 1.0, 1 + delta)]
+    g = torch.stack(grads)
+    scale = g[1].abs().amax(0).clamp_min(1e-30)
+    below = (g.amin(0) - got) / scale
+    above = (got - g.amax(0)) / scale
+    return float(torch.maximum(below, above).clamp_min(0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "chunk_boundary", "rasterize"])
+def test_blend_backward_kernel_matches_plain_version(case):
+    """K2 against its plain version on the same card inputs: inside the
+    envelope of the plain gradients at T_EPS·(1±2e-4), widened by 1.5e-3 of
+    each component's largest |grad| (rounding between the kernel's
+    sequential product and the plain version's log-space prefix)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    if case == "random":
+        w, h = W, H
+        rows, ids, bounds = (torch.from_numpy(x).to(dev)
+                             for x in _random_rows(rng, TILES_X, 2, 300))
+    elif case == "chunk_boundary":
+        w, h = 16, 16
+        rows, ids, bounds = (torch.from_numpy(x).to(dev)
+                             for x in _chunk_boundary_rows())
+    else:
+        w, h = 45, 30
+        cam = make_camera(0, np.eye(3), np.zeros(3), 1.0, 0.8, w, h)
+        n = 400
+        means = np.stack([rng.uniform(-0.8, 0.8, n), rng.uniform(-0.8, 0.8, n),
+                          rng.uniform(1.5, 5.0, n)], 1).astype(np.float32)
+        quats = rng.normal(size=(n, 4)).astype(np.float32)
+        quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+        opac = torch.from_numpy(rng.uniform(0.3, 1, n).astype(np.float32))
+        proj = trz.project_gaussians(
+            torch.from_numpy(means).to(dev),
+            torch.from_numpy(rng.uniform(0.02, 0.12, (n, 3)).astype(
+                np.float32)).to(dev),
+            torch.from_numpy(quats).to(dev),
+            torch.from_numpy(cam.world_view).to(dev),
+            torch.from_numpy(cam.full_proj).to(dev), cam.tanfovx,
+            cam.tanfovy, w, h, opacities=opac.to(dev))
+        inst = trz.expand_and_sort(proj, (w + 15) // 16, (h + 15) // 16)
+        colors = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(
+            np.float32)).to(dev)
+        rows = trz.splat_rows(proj, colors, opac.to(dev))
+        ids, bounds = inst.gauss_ids, inst.tile_bounds
+    d_rgb, d_ft = (x.to(dev) for x in _cotangents(rng, w, h))
+    rgb, ft, last = tile_kernel.blend_forward(rows, ids, bounds, w, h)
+    before = tile_kernel.backward_launches
+    got = tile_kernel.blend_backward(rows, ids, bounds, rgb, ft, last, d_rgb,
+                                     d_ft, w, h)
+    torch.cuda.synchronize()
+    assert tile_kernel.backward_launches == before + 1
+    assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
+    assert _envelope_error(got, rows, ids, bounds, w, h, d_rgb,
+                           d_ft) <= 1.5e-3

@@ -1,6 +1,7 @@
 """PyTorch port against the JAX reference: quantizers, MLPs carried across by
-`convert.py`, the neural-gaussian decode, prefilter, `render(phase="plain")`
-and `init_scene_model`, on the same numpy inputs (CPU)."""
+`convert.py`, the neural-gaussian decode (plain and noise phases), prefilter,
+`render(phase="plain")` and `init_scene_model`, on the same numpy inputs
+(CPU)."""
 
 import functools
 
@@ -174,10 +175,10 @@ def test_render_plain_matches_jax():
     np.testing.assert_allclose(out_t.final_t.numpy(),
                                np.asarray(out_j.final_t), atol=2e-5)
     assert out_t.n_instances == int(out_j.n_instances)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 3"):
         trenderer.render(pt, bt, cfg_t, tcfg.OptimizationConfig(),
                          tcfg.PipelineConfig(), cd, W, H, _t(bg),
-                         phase="noise")
+                         phase="context")
 
 
 @pytest.mark.parametrize("voxel_size", [0.08, 0.0])
@@ -203,3 +204,102 @@ def test_init_scene_model_matches_jax(rng, voxel_size):
     n = int(mt.buffers.alive.sum())
     w = mt.params.mlps.opacity.l1.weight
     assert 0 < n < len(mt.buffers.alive) and w.abs().max() <= 1 / 12 ** 0.5
+
+
+def _values_and_grads(fn_j, fn_t, x, w):
+    """f(x) and d/dx Σ w·f(x) through both packages."""
+    out_j = fn_j(jnp.asarray(x))
+    grad_j = jax.grad(lambda x: jnp.sum(fn_j(x) * w))(jnp.asarray(x))
+    xt = _t(x).requires_grad_(True)
+    out_t = fn_t(xt)
+    grad_t, = torch.autograd.grad((out_t * _t(w)).sum(), xt)
+    return (out_t.detach().numpy(), np.asarray(out_j), grad_t.numpy(),
+            np.asarray(grad_j))
+
+
+@pytest.mark.parametrize("name", ["ste_round", "ste_multistep",
+                                  "ste_multistep_mean", "ste_binary",
+                                  "uniform_noise_quant"])
+def test_quantizers_match_jax(rng, monkeypatch, name):
+    """Values and straight-through gradients; the noise quantizer gets the
+    reference's own uniform draws."""
+    x = np.concatenate([rng.normal(size=400) * 3,
+                        np.float32([0.5, -0.5, 1.5, 1.0, -1.0, 0.0]),
+                        rng.normal(size=100) * 1e4]).astype(np.float32)
+    w = rng.normal(size=x.shape).astype(np.float32)
+    q = 0.2
+    mean = rng.normal(size=x.shape).astype(np.float32) * 100
+    key = jax.random.PRNGKey(9)
+    fns = dict(
+        ste_round=(jquant.ste_round, tquant.ste_round),
+        ste_multistep=(lambda v: jquant.ste_multistep(v, q),
+                       lambda v: tquant.ste_multistep(v, q)),
+        ste_multistep_mean=(
+            lambda v: jquant.ste_multistep(v, q, jnp.asarray(mean)),
+            lambda v: tquant.ste_multistep(v, q, _t(mean))),
+        ste_binary=(jquant.ste_binary, tquant.ste_binary),
+        uniform_noise_quant=(
+            lambda v: jquant.uniform_noise_quant(v, q, key),
+            lambda v: tquant.uniform_noise_quant(v, q, None)))
+    draws = np.asarray(jax.random.uniform(key, x.shape, jnp.float32))
+    monkeypatch.setattr(tquant, "_uniform",
+                        lambda shape, gen, dev: _t(draws))
+    got, want, g_got, g_want = _values_and_grads(*fns[name], x, w)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(g_got, g_want)
+    if name == "ste_multistep":
+        assert np.abs(got).max() == pytest.approx(15_000 * q)
+
+
+def test_decode_noise_phase_matches_jax(rng, monkeypatch):
+    """phase="noise" with the reference's noise arrays (feat, scaling,
+    offsets, in that order), over all anchors and compacted to some."""
+    cfg_j, pj, bj = _jax_scene()
+    cfg_t, pt, bt = _torch_scene()
+    n = pj.anchor.shape[0]
+    vis = rng.random(n) < 0.8
+    center = np.float32([0.1, -0.2, 0.0])
+    key = jax.random.PRNGKey(3)
+    ng_j, aux = jax.jit(lambda p, b, v, key: jdecode.generate_neural_gaussians(
+        p, b, cfg_j, jcfg.OptimizationConfig(), jnp.asarray(center), v, key,
+        phase="noise", training=True))(pj, bj, vis, key)
+    assert aux.rate is None
+    kf, ks, ko = jax.random.split(key, 3)
+    shapes = (pj.anchor_feat.shape, pj.scaling_log.shape, pj.offsets.shape)
+    draws = [np.asarray(jax.random.uniform(kk, s, jnp.float32))
+             for kk, s in zip((kf, ks, ko), shapes)]
+    calls = []
+
+    def uniform(shape, gen, dev):
+        calls.append(tuple(shape))
+        return _t(draws[(len(calls) - 1) % 3])
+
+    monkeypatch.setattr(tquant, "_uniform", uniform)
+    index = torch.nonzero(_t(vis)).squeeze(1)
+    with torch.no_grad():
+        ng_t, _ = tdecode.generate_neural_gaussians(
+            pt, bt, cfg_t, tcfg.OptimizationConfig(), _t(center), _t(vis),
+            phase="noise", training=True)
+        ng_c, _ = tdecode.generate_neural_gaussians(
+            pt, bt, cfg_t, tcfg.OptimizationConfig(), _t(center), _t(vis),
+            phase="noise", training=True, anchor_index=index)
+    assert calls == [tuple(s) for s in shapes] * 2
+    slots = (index[:, None] * cfg_t.n_offsets
+             + torch.arange(cfg_t.n_offsets)).reshape(-1).numpy()
+    for name in ("xyz", "color", "opacity", "scaling", "rot",
+                 "neural_opacity"):
+        want = np.asarray(getattr(ng_j, name))
+        np.testing.assert_allclose(getattr(ng_t, name).numpy(), want,
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+        # a smaller matmul may round in another order
+        np.testing.assert_allclose(getattr(ng_c, name).numpy(),
+                                   getattr(ng_t, name).numpy()[slots],
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    np.testing.assert_array_equal(ng_t.gauss_valid.numpy(),
+                                  np.asarray(ng_j.gauss_valid))
+    # the noise moved the decode away from the plain phase's
+    with torch.no_grad():
+        plain, _ = tdecode.generate_neural_gaussians(
+            pt, bt, cfg_t, tcfg.OptimizationConfig(), _t(center), _t(vis),
+            phase="plain", training=True)
+    assert np.abs(plain.xyz.numpy() - ng_t.xyz.numpy()).max() > 1e-3

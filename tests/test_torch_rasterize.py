@@ -1,5 +1,6 @@
 """PyTorch port against the JAX reference: projection, tile binning, the plain
-tile blend and `rasterize` forward, on the same numpy inputs (CPU)."""
+tile blend, `rasterize` forward and its gradients, on the same numpy inputs
+(CPU)."""
 
 import functools
 
@@ -223,3 +224,101 @@ def test_rasterize_screen_dummy_and_t_eps(rng):
     loose = _torch_raster(W, H, scene, bg, t_eps=0.5)
     assert float(loose.final_t.min()) >= 0.5 - 1e-6
     assert float(base.final_t.min()) < 0.5
+
+
+GRAD_ARGS = ("means", "scales", "quats", "colors", "opacities",
+             "screen_dummy")
+
+
+@functools.lru_cache(maxsize=8)
+def _jax_raster_grad(width, height):
+    cam = _cam_np(width, height)
+
+    def loss(means, scales, quats, colors, opac, screen_dummy, bg, target):
+        out = jax_rasterize(means, scales, quats, colors, opac, width=width,
+                            height=height, bg=bg, budget=BUDGET,
+                            chunk_size=128, backend="reference",
+                            screen_dummy=screen_dummy, **cam)
+        return jnp.mean(jnp.abs(out.image - target))
+
+    return jax.jit(jax.value_and_grad(loss, argnums=tuple(range(6))))
+
+
+def _torch_raster_grad(width, height, scene, bg, target):
+    args = [_t(x).requires_grad_(True) for x in scene]
+    dummy = torch.zeros((args[0].shape[0], 2), requires_grad=True)
+    cam = _cam_np(width, height)
+    out = trz.rasterize(*args, world_view=_t(cam["world_view"]),
+                        full_proj=_t(cam["full_proj"]),
+                        tanfovx=cam["tanfovx"], tanfovy=cam["tanfovy"],
+                        width=width, height=height, bg=_t(bg),
+                        screen_dummy=dummy)
+    loss = torch.abs(out.image - _t(target)).mean()
+    return loss, torch.autograd.grad(loss, args + [dummy])
+
+
+def _grad_case(rng, case):
+    if case == "random":
+        return W, H, make_random_gaussians(rng, 80)
+    if case == "occluder":
+        return 32, 32, _occluder_scene()
+    return 16, 16, _chunk_boundary_scene()
+
+
+@pytest.mark.parametrize("bg", ["zero", "nonzero"])
+@pytest.mark.parametrize("case", ["random", "occluder", "chunk_boundary"])
+def test_rasterize_gradients_match_jax(rng, case, bg):
+    """Gradients of an L1 loss through `rasterize` (K1/K2's plain versions on
+    the CPU) against jax.grad through the reference backend: 1e-5 of each
+    argument's largest |grad|. A nonzero background makes the final
+    transmittance reach the loss (the dL/dT_final term). Where an argument's
+    gradient cancels by symmetry (the chunk-boundary splats are centred on
+    the image: screen_dummy ≈ 1e-11, means ≈ 1e-4 from their depths), its
+    scale is floored at 1e-3 of the largest gradient of any argument, so
+    that the tolerance is not set by rounding noise."""
+    w, h, scene = _grad_case(rng, case)
+    bgv = (np.zeros(3, np.float32) if bg == "zero"
+           else np.float32([0.3, 0.5, 0.7]))
+    target = rng.uniform(0, 1, (3, h, w)).astype(np.float32)
+    dummy = np.zeros((scene[0].shape[0], 2), np.float32)
+    loss_j, grads_j = _jax_raster_grad(w, h)(*scene, dummy, bgv, target)
+    loss_t, grads_t = _torch_raster_grad(w, h, scene, bgv, target)
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j),
+                               rtol=1e-6)
+    floor = 1e-3 * max(np.abs(np.asarray(g)).max() for g in grads_j)
+    for name, got, want in zip(GRAD_ARGS, grads_t, grads_j):
+        want = np.asarray(want)
+        scale = np.abs(want).max()
+        assert np.isfinite(got.numpy()).all(), name
+        if case == "random" or name in ("colors", "opacities"):
+            assert scale > 0, f"zero gradient for {name}"
+        np.testing.assert_allclose(got.numpy(), want,
+                                   atol=1e-5 * max(scale, floor), rtol=0,
+                                   err_msg=name)
+
+
+def test_rasterize_color_gradient_vs_finite_differences(rng):
+    """Colors enter the blend linearly and move no alpha or transmittance
+    cut-off, so central differences are exact for them."""
+    scene = list(make_random_gaussians(rng, 8))
+    target = np.zeros((3, 32, 32), np.float32)
+    bg = np.float32([0.2, 0.1, 0.0])
+    _, grads = _torch_raster_grad(32, 32, scene, bg, target)
+    g = grads[3].numpy()
+    eps = 1e-2
+
+    def loss(colors):
+        with torch.no_grad():
+            out = _torch_raster(32, 32, scene[:3] + [colors, scene[4]], bg)
+        return float(torch.abs(out.image - _t(target)).mean())
+
+    for i in range(4):
+        c = scene[3].copy()
+        c[i, 0] += eps
+        lp = loss(c)
+        c[i, 0] -= 2 * eps
+        lm = loss(c)
+        fd = (lp - lm) / (2 * eps)
+        assert np.isclose(g[i, 0], fd, rtol=2e-2, atol=1e-3), \
+            f"color[{i},0]: analytic {g[i, 0]} vs fd {fd}"
+    assert np.abs(g).max() > 0

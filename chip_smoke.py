@@ -6,7 +6,7 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
 
 Phases, one JSON object per line; any failed check exits non-zero:
 
-1. device  — the card's name and power limit; K1 and K2 built from the
+1. device  — the card's name and power limit; K1, K2 and K3 built from the
    sources in the checkout (nvcc, sm_90a, one process each, together).
 2. k1_check — K1 against its plain PyTorch version on the card: golden small
    cases (2e-5), then a 1280x720 view of a 20k-anchor decoded scene (max
@@ -19,6 +19,11 @@ Phases, one JSON object per line; any failed check exits non-zero:
    plain gradients at T_EPS·(1±2e-4), widened by 1.5e-3 of that component's
    largest |grad| (the JAX package's Pallas-versus-oracle tolerance, the size
    of rounding between a sequential product and a log-space prefix).
+   k3_check — K3 (the lane prefix sum) against its plain version on the
+   card: int32 and uint32 exact, the two's complement wrap of [2, 100000],
+   the sizes 1, 127, 129 and 4097 inclusive and exclusive, a 1-D exclusive
+   row and one row of 1M (many blocks); float32 within
+   scan.float_tolerance(N) · Σ|x| of a float64 prefix.
 3. serve — the main path of serving at full width: a decoded scene of
    ModelConfig() width (feat_dim 50, 10 offsets) and 100k anchors, built with
    the recipe of scripts/fps_bench.py from a seed, rendered by
@@ -30,23 +35,39 @@ Phases, one JSON object per line; any failed check exits non-zero:
    the orbit with CUDA events around the renderer's module-level calls (the
    stage split), K1 checked, timed and bounded on the kept inputs, the small
    CPU-vs-card check, and render(phase="plain") from init_scene_model over a
-   seeded 100k-point cloud.
+   seeded 100k-point cloud. K3's count is set to 0 with K1's and read
+   after: K3 is off the main path (the rasterizer's prefix sums are
+   torch.cumsum, as the reference's are jnp.cumsum).
 4. ssim_grad — the SSIM gradient at 1280x720 on the card against float64 on
    the CPU (1e-5 relative; cuDNN's TF32 would give about 1e-3, printed too).
 5. train — the main path of training at full width: train() from
    init_scene_model over the serve scene's 100k anchor positions, the 32
-   serve renders as targets, 60 steps at 1280x720 (1-30 plain, 31-60 noise,
-   densify at 20, 30 and 40). K1's and K2's counts are set to 0 just before
-   and read just after and must equal the steps; the losses are finite and
-   fall; CUDA events split each step into forward render, loss, backward,
-   Adam, statistics and densify. K2 is checked again on the last step's
-   inputs; train_profile: torch.profiler over 3 more steps (device time by
-   kernel, the device's busy share). Then train_small_cpu_vs_card: 5 plain
-   steps of a small scene
-   from one state on the CPU and on the card (losses 1e-3 relative:
-   atomics and reduction order differ), and k2_bound: K2 timed and bounded
-   on the last step's inputs.
-6. the `kernels` line, then the card line from nvidia-smi, then the result.
+   serve renders as targets, 90 steps at 1280x720 (1-30 plain, 31-60 noise,
+   61-90 context, densify every 10 steps from 20 to 70). K1's, K2's and
+   K3's counts are set to 0 just before and read just after; K1 and K2 must
+   equal the steps; the losses are finite and fall; bit_per_param is finite
+   and above 0 on every context step; the level scales were searched (2)
+   and every step's level counts sum to its kept anchors. CUDA events split
+   each step into level maps, forward render (the context inside it),
+   loss, backward, Adam, statistics and densify, per phase. K2 is checked
+   again on the last step's inputs; train_profile: torch.profiler over 3
+   more noise and 3 more context steps (device time by kernel, the
+   device's busy share). context_eval: make_eval_render(phase="context")
+   renders one view of the final state twice (finite, bit-identical: no
+   draws, and K1 uses no atomics) and estimate_bits gives the model's size
+   in MB per stream. Then train_small_cpu_vs_card: 5 plain steps of a
+   small scene from one state on the CPU and on the card (losses 1e-3
+   relative: atomics and reduction order differ); context_small_cpu_vs_card:
+   5 context steps likewise, both sides given the same draws (loss and
+   bit_per_param 1e-3 relative); and k2_bound: K2 timed and bounded on the
+   last step's inputs.
+6. k3_bound — K3, its plain version and torch.cumsum (the library call)
+   timed by CUDA events over back-to-back calls, and K3 and torch.cumsum
+   by the profiler's kernel time, on the serve view's per-gaussian tile
+   counts ([1, n] int32, the input of ops/rasterize/sorting.py's first
+   cumsum) and on [16, 2^20] float32 N(0,1) (the lane-major form of the
+   reference's packed gradient prefix), each against its byte bound.
+7. the `kernels` line, then the card line from nvidia-smi, then the result.
 """
 
 import contextlib
@@ -83,9 +104,14 @@ OPS = dict(evaluated=11, exp=2, tested=2, blended=7)
 # and conic (19), and the 9 additions that sum the pixels' values (9).
 OPS_K2 = dict(bwd_evaluated=11, bwd_exp=2, bwd_blended=48)
 ENVELOPE = 1.5e-3            # K2 against the plain envelope, of max |grad|
-TRAIN_STEPS = 60
-# the training step's module-level calls the train split times
-TRAIN_STAGES = ("forward", "loss", "backward", "adam", "stats", "densify")
+TRAIN_STEPS = 90
+# first and last step of each phase of the train cell
+TRAIN_PHASES = dict(plain=(1, 30), noise=(31, 60), context=(61, 90))
+SPLIT_FROM = 6               # steps 1-5 hold the allocator's warm-up
+# the training step's module-level calls the train split times; "context"
+# (multi_scale_generate and estimate_rate) runs inside "forward"
+TRAIN_STAGES = ("levels", "forward", "context", "loss", "backward", "adam",
+                "stats", "densify")
 # the renderer's module-level calls the stage split times, in call order
 STAGES = ("visible_filter", "decode_neural_gaussians", "project_gaussians",
           "expand_and_sort", "blend_forward")
@@ -384,11 +410,16 @@ def train_scene(dec, renders, cams):
 
 def train_split_targets():
     """(module, name, stage) of the training step's module-level calls: the
-    names train/step.py and train/loop.py look up at call time."""
+    names train/step.py, train/loop.py and models/decode.py look up at call
+    time."""
+    import contextgs_tpu_torch.models.context as tctx
     import contextgs_tpu_torch.models.densify as tdensify
     import contextgs_tpu_torch.train.step as tstep
 
-    return [(tstep, "render", "forward"), (tstep, "l1_loss", "loss"),
+    return [(tstep, "build_level_maps", "levels"),
+            (tstep, "render", "forward"),
+            (tctx, "multi_scale_generate", "context"),
+            (tctx, "estimate_rate", "context"), (tstep, "l1_loss", "loss"),
             (tstep, "ssim", "loss"), (torch.autograd, "grad", "backward"),
             (tstep, "adam_update", "adam"),
             (tdensify, "accumulate_stats", "stats"),
@@ -426,17 +457,20 @@ def train_small_cpu_vs_card(dev):
     return losses["cpu"], losses[str(dev)]
 
 
-def profile_train_steps(ts, cfg, scene, dev, step_ms, n=3):
-    """torch.profiler over n noise-phase steps from the trained state (one
+def profile_train_steps(ts, cfg, scene, dev, step_ms, phase, n=3):
+    """torch.profiler over n steps of `phase` from the trained state (one
     warm-up step first): kernel time per step, the busiest kernels and host
     operators, and the device's busy share: kernel time per step over
-    `step_ms`, the unprofiled median step (the profiler slows the host)."""
+    `step_ms`, the phase's unprofiled median step (the profiler slows the
+    host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from contextgs_tpu_torch.train.step import make_train_step
 
-    step = make_train_step(cfg, W, H, "noise", ts.spatial_lr_scale)
+    step = make_train_step(cfg, W, H, phase, ts.spatial_lr_scale,
+                           level_scales=ts.level_scales or (),
+                           voxel_size=ts.voxel_size)
     bg = torch.zeros(3, device=dev)
     state = (ts.model.params, ts.model.buffers, ts.adam)
     cams = scene.train_cameras
@@ -471,12 +505,186 @@ def profile_train_steps(ts, cfg, scene, dev, step_ms, n=3):
                      calls_per_step=e.count / n)
                 for e in sorted(items, key=key, reverse=True)[:k]]
 
-    return dict(steps=n, profiled_wall_ms_per_step=wall_ms,
+    return dict(train_phase=phase, steps=n, profiled_wall_ms_per_step=wall_ms,
                 kernel_ms_per_step=device_ms,
                 kernels_per_step=sum(e.count for e in kernels) / n,
                 device_busy_share=device_ms / step_ms,
                 top_kernels=top(kernels, device_us, 10),
                 top_host_self=top(events, lambda e: e.self_cpu_time_total, 8))
+
+
+def k3_cases():
+    """(name, numpy input, exclusive) of k3_check."""
+    rng = np.random.default_rng(12)
+
+    def ints(shape, lo, hi):
+        return rng.integers(lo, hi, shape).astype(np.int32)
+
+    yield "i32_wrap_2x100000", ints((2, 100_000), -(2 ** 28), 2 ** 28), False
+    for n in (1, 127, 129, 4097):
+        x = ints((8, n), 0, 100)
+        yield f"i32_8x{n}", x, False
+        yield f"i32_8x{n}_exclusive", x, True
+    yield "i32_1d_5000_exclusive", ints(5000, 0, 1000), True
+    yield "i32_1x1048579", ints((1, (1 << 20) + 3), -(2 ** 28), 2 ** 28), False
+    yield "u32_3x10000", rng.integers(0, 2 ** 32, (3, 10_000),
+                                      dtype=np.uint64).astype(np.uint32), False
+    for shape, excl in (((8, 33_000), False), ((16, 1 << 20), False),
+                        ((1, 300_001), True)):
+        yield (f"f32_{shape[0]}x{shape[1]}" + ("_exclusive" if excl else ""),
+               rng.normal(size=shape).astype(np.float32), excl)
+
+
+def check_k3(dev):
+    """K3 against its plain version on the card, case by case: int32 and
+    uint32 exact, and equal to numpy's int32 prefix; float32 within
+    float_tolerance(N) · Σ_{j≤i}|x_j| of a float64 prefix. Returns the
+    largest float32 error."""
+    from contextgs_tpu_torch.ops import scan
+
+    worst = 0.0
+    for name, x, excl in k3_cases():
+        xt = torch.from_numpy(x).to(dev)
+        got = scan.lane_cumsum(xt, exclusive=excl)
+        torch.cuda.synchronize()
+        res = dict(case=name, shape=list(x.shape), exclusive=excl)
+        if x.dtype == np.float32:
+            x64 = x.astype(np.float64)
+            ref = np.cumsum(x64, axis=-1)
+            mag = np.cumsum(np.abs(x64), axis=-1)
+            if excl:
+                ref, mag = ref - x64, mag - np.abs(x64)
+            err = np.abs(got.cpu().numpy().astype(np.float64) - ref)
+            allowed = scan.float_tolerance(x.shape[-1]) * mag
+            res.update(max_abs=float(err.max()),
+                       worst_share_of_bound=float(
+                           (err / np.maximum(allowed, 1e-300)).max()))
+            ok = bool((err <= allowed).all())
+            worst = max(worst, res["max_abs"])
+        else:
+            as_i32 = (lambda t: t.view(torch.int32)) if x.dtype == np.uint32 \
+                else (lambda t: t)
+            plain = scan.lane_cumsum_reference(as_i32(xt), excl)
+            host = np.cumsum(x.view(np.int32), axis=-1, dtype=np.int32)
+            if excl:
+                host = np.concatenate(
+                    [np.zeros_like(host[..., :1]), host[..., :-1]], -1)
+            mismatch = int((as_i32(got) != plain).sum())
+            res.update(mismatch=mismatch, host_mismatch=int(
+                (as_i32(got).cpu().numpy() != host).sum()))
+            ok = mismatch == 0 and res["host_mismatch"] == 0
+        emit(phase="k3_check", ok=ok, **res)
+        check(ok, f"K3 {name}")
+    return worst
+
+
+def device_ms(fn, reps=20):
+    """Kernel time per call of `fn` by torch.profiler: the device's own
+    time, without the gaps in which it waits for the host to launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
+def time_k3(x, reps=50):
+    """K3, its plain version and torch.cumsum on x, by CUDA events over
+    back-to-back calls (what a caller sees, host launch gaps included) and
+    by the profiler's kernel time, with the byte bound: each element read
+    once and written once."""
+    from contextgs_tpu_torch.ops import scan
+
+    n_bytes = 2 * x.numel() * x.element_size()
+
+    def library():
+        return torch.cumsum(x, -1, dtype=x.dtype)
+
+    return dict(
+        shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
+        k3_ms=cuda_ms(lambda: scan.lane_cumsum(x), reps),
+        plain_ms=cuda_ms(lambda: scan.lane_cumsum_reference(x), reps),
+        library_ms=cuda_ms(library, reps),
+        k3_device_ms=device_ms(lambda: scan.lane_cumsum(x)),
+        library_device_ms=device_ms(library),
+        bytes=n_bytes, bound_ms=n_bytes / PEAK_HBM_BYTES * 1e3)
+
+
+def context_small_cpu_vs_card(dev):
+    """5 context steps of a small scene from one state on the CPU and on the
+    card, both given the same draws: context_draws is called with a CPU
+    generator seeded alike on each side, and its draws moved to the device.
+    Returns {device: (losses, bit_per_param)}."""
+    from contextgs_tpu_torch.config import ModelConfig, TrainConfig
+    from contextgs_tpu_torch.models import context as tctx
+    from contextgs_tpu_torch.models import levels as tlev
+    from contextgs_tpu_torch.models import state as tst
+    from contextgs_tpu_torch.train.optim import init_adam
+    from contextgs_tpu_torch.train.step import make_train_step
+
+    cfg = TrainConfig(model=ModelConfig())
+    mcfg = cfg.model
+    w, h = 128, 96
+    cams = orbit_cameras(4, w, h, 5)
+    pts = np.random.default_rng(6).uniform(-2, 2, (2_000, 3))
+    original = tctx.context_draws
+    out = {}
+    for device in ("cpu", dev):
+        model, voxel = tst.init_scene_model(
+            pts, mcfg, generator=torch.Generator().manual_seed(6),
+            device=device)
+        p, b = model.params, model.buffers
+        rng = np.random.default_rng(7)
+        n = p.anchor.shape[0]
+        alive = b.alive.cpu().numpy().astype(np.float32)
+
+        def content(*shape, s):
+            x = rng.normal(size=shape).astype(np.float32) * s
+            return torch.from_numpy(x * alive.reshape(
+                (-1,) + (1,) * (len(shape) - 1))).to(device)
+
+        p = p._replace(anchor_feat=content(n, mcfg.feat_dim, s=0.3),
+                       hyper_latent=content(n, mcfg.hyper_dim, s=1.0),
+                       offsets=content(n, mcfg.n_offsets, 3, s=0.3))
+        kept = tst.get_mask_anchor(p, b.alive)
+        scales = tlev.find_divide_scale(
+            p.anchor[kept].cpu().numpy(), voxel, b.bound_min.cpu().numpy(),
+            b.bound_max.cpu().numpy(), mcfg.target_ratio, mcfg.level_num)
+        adam = init_adam(p)
+        step = make_train_step(cfg, w, h, "context", 4.4, level_scales=scales,
+                               voxel_size=voxel)
+        cpu_gen = torch.Generator().manual_seed(8)
+
+        def same_draws(gen, n_, cfg_, training, device_=None):
+            d = original(cpu_gen, n_, cfg_, training, "cpu")
+            return tctx.ContextDraws(*(
+                tuple(x.to(device_) for x in f) if isinstance(f, tuple)
+                else f.to(device_) for f in d))
+
+        losses, bpps = [], []
+        tctx.context_draws = same_draws
+        try:
+            for it in range(1, 6):
+                cam = cams[(it - 1) % len(cams)]
+                gt = torch.from_numpy(np.ascontiguousarray(
+                    cam.image.transpose(2, 0, 1))).to(device)
+                p, b, adam, m = step(p, b, adam, cam.as_device_dict(), gt,
+                                     torch.zeros(3, device=device),
+                                     10_000 + it, True)
+                losses.append(float(m.loss))
+                bpps.append(float(m.bit_per_param))
+        finally:
+            tctx.context_draws = original
+        out[str(device)] = (losses, bpps)
+    return out["cpu"], out[str(dev)]
 
 
 def main() -> int:
@@ -491,7 +699,7 @@ def main() -> int:
                                                 render_set)
     from contextgs_tpu_torch.models import renderer as trenderer
     from contextgs_tpu_torch.models import state as tst
-    from contextgs_tpu_torch.ops import cuda_build
+    from contextgs_tpu_torch.ops import cuda_build, scan
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
 
     dev = torch.device("cuda")
@@ -503,7 +711,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    cuda_build.build(tile_kernel.SOURCES)
+    cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE,))
     build_s = time.perf_counter() - t0
 
     def ptxas(stem):
@@ -514,7 +722,7 @@ def main() -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=build_s, k1_ptxas=ptxas("blend_forward"),
-         k2_ptxas=ptxas("blend_backward"))
+         k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"))
 
     # ---- 2. K1 against its plain version ----
     for name, (rows, ids, bounds, w, h) in golden_cases(dev):
@@ -528,6 +736,9 @@ def main() -> int:
     for i, (name, (rows, ids, bounds, w, h)) in enumerate(golden_cases(dev)):
         check_k2(name, compare_k2(rows, ids, bounds, w, h,
                                   *cotangents(w, h, 30 + i, dev)))
+    scan.launches = 0
+    k3_err = check_k3(dev)
+    k3_check_launches = scan.launches
 
     cfg = TrainConfig(model=ModelConfig())
     mcfg = cfg.model
@@ -555,12 +766,13 @@ def main() -> int:
     render(cams[0].as_device_dict(), bg)        # allocator warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1_kept, view_ms = {}, []
-    with wrapped(trz, "blend_forward", keep_args(k1_kept)):
-        tile_kernel.launches = 0
+    k1_kept, sort_kept, view_ms = {}, {}, []
+    with wrapped(trz, "blend_forward", keep_args(k1_kept)), \
+            wrapped(trz, "expand_and_sort", keep_args(sort_kept)):
+        tile_kernel.launches = scan.launches = 0
         renders, gts, fps = render_set(render, cams, bg, view_ms=view_ms)
         torch.cuda.synchronize()
-        k1_launches = tile_kernel.launches
+        k1_launches, k3_serve = tile_kernel.launches, scan.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = evaluate_images(renders, gts)
     timed = view_ms[WARMUP:]
@@ -568,6 +780,7 @@ def main() -> int:
          height=H, anchors=100_000, ms_per_view=1e3 / fps, fps=fps,
          view_ms_median=float(np.median(timed)), view_ms_min=min(timed),
          view_ms_max=max(timed), k1_launches=k1_launches,
+         k3_launches=k3_serve,
          peak_mem_gib=peak_gib, PSNR=metrics["PSNR"], SSIM=metrics["SSIM"],
          LPIPS=metrics["LPIPS"])
     check(k1_launches == N_VIEWS, "K1 launches on the main path != views")
@@ -629,6 +842,14 @@ def main() -> int:
          rows_read=rows_read, bytes=n_bytes, fp32_ops=n_ops, **k1_bound,
          k1_ms=k1_ms, plain_ms=plain_ms,
          share_of_bound=k1_bound["bound_ms"] / k1_ms)
+    # the last view's per-gaussian tile counts in depth order: the input of
+    # the first prefix sum of ops/rasterize/sorting.py, K3's shape (a)
+    proj = sort_kept["args"][0]
+    counts_g = proj.n_tiles.to(torch.int64)
+    order = torch.sort(torch.where(counts_g > 0, proj.depths, float("inf")),
+                       stable=True).indices
+    tile_counts = counts_g[order].to(torch.int32)[None].contiguous()
+    del sort_kept, proj, counts_g, order
 
     # CPU-vs-card check of the whole decoded-render path at a small size
     small_cfg = TrainConfig(model=ModelConfig())
@@ -682,14 +903,16 @@ def main() -> int:
 
     # ---- 5. the main path of training ----
     import contextgs_tpu_torch.train.loop as tloop
+    import contextgs_tpu_torch.train.step as tstep
 
     scene = train_scene(dec, renders, orbit_cameras(N_VIEWS, W, H, 1))
     del render, renders, split_view_ms, k1_kept, rows, ids, bounds
     tcfg = TrainConfig(model=ModelConfig(), opt=OptimizationConfig(
-        iterations=TRAIN_STEPS, noise_from=30, context_from=TRAIN_STEPS,
-        start_stat=5, update_from=10, update_interval=10, update_until=50),
+        iterations=TRAIN_STEPS, noise_from=TRAIN_PHASES["plain"][1],
+        context_from=TRAIN_PHASES["noise"][1], start_stat=5, update_from=10,
+        update_interval=10, update_until=75),
         test_iterations=(), save_iterations=(), log_every=10 ** 9)
-    log, losses, step_ms, k2_kept = [], [], [], {}
+    log, losses, bpps, step_ms, k2_kept, level_calls = [], [], [], [], {}, []
     t_prev = [time.perf_counter()]
 
     def mark_step(it, ts, metrics):
@@ -698,11 +921,21 @@ def main() -> int:
         step_ms.append((now - t_prev[0]) * 1e3)
         t_prev[0] = now
         losses.append(metrics.loss)
+        bpps.append(metrics.bit_per_param)
         log.append(("step", it, None, None))
+
+    def keep_level_counts(fn):
+        def call(anchors, member, *args):
+            maps = fn(anchors, member, *args)
+            level_calls.append((member.sum(), maps.counts.sum()))
+            return maps
+        return call
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as stack:
+        stack.enter_context(wrapped(tstep, "build_level_maps",
+                                    keep_level_counts))
         for module, name, stage in train_split_targets():
             summary = ((lambda r: (r.n_grown, r.n_pruned))
                        if stage == "densify" else lambda out: None)
@@ -711,45 +944,94 @@ def main() -> int:
         stack.enter_context(wrapped(trz, "blend_backward",
                                     keep_args(k2_kept)))
         tile_kernel.launches = tile_kernel.backward_launches = 0
+        scan.launches = 0
         t_prev[0] = time.perf_counter()
         ts = tloop.train(tcfg, scene, callback=mark_step)
         torch.cuda.synchronize()
         train_k1 = tile_kernel.launches
         train_k2 = tile_kernel.backward_launches
+        k3_train = scan.launches
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
-    split = {f"{st}_ms": 0.0 for st in TRAIN_STAGES}
+    bpps = [float(x) for x in bpps]
+    level_calls = [(int(a), int(b)) for a, b in level_calls]
+
+    def phase_at(it):
+        return next(ph for ph, (a, b) in TRAIN_PHASES.items() if a <= it <= b)
+
+    split = {ph: {f"{st}_ms": 0.0 for st in TRAIN_STAGES}
+             for ph in TRAIN_PHASES}
+    n_split = {ph: b - max(a, SPLIT_FROM) + 1
+               for ph, (a, b) in TRAIN_PHASES.items()}
     densified, it = [], 0
     for name, start, end, out in log:
         if name == "step":
             it = start
-        elif name == "densify":
-            densified.append(dict(grown=int(out[0]), pruned=int(out[1])))
-        if name != "step" and it >= 5:          # steps 6-60
-            split[f"{name}_ms"] += (start.elapsed_time(end)
-                                    / (TRAIN_STEPS - 5))
-    timed_ms = step_ms[5:]
-    split["step_ms_median"] = float(np.median(timed_ms))
-    split["other_ms"] = float(np.mean(timed_ms)) - sum(
-        split[f"{st}_ms"] for st in TRAIN_STAGES)
+            continue
+        if name == "densify":
+            densified.append(dict(step=it + 1, grown=int(out[0]),
+                                  pruned=int(out[1])))
+        if it + 1 >= SPLIT_FROM:          # entries after step it's mark
+            ph = phase_at(it + 1)
+            split[ph][f"{name}_ms"] += start.elapsed_time(end) / n_split[ph]
+    for ph, (a, b) in TRAIN_PHASES.items():
+        ms = step_ms[max(a, SPLIT_FROM) - 1:b]
+        split[ph]["step_ms_median"] = float(np.median(ms))
+        split[ph]["step_ms_min"] = min(ms)
+        split[ph]["step_ms_max"] = max(ms)
+        split[ph]["other_ms"] = float(np.mean(ms)) - sum(
+            split[ph][f"{st}_ms"] for st in TRAIN_STAGES if st != "context")
+    ctx_from = TRAIN_PHASES["context"][0]
     emit(phase="train", steps=TRAIN_STEPS, width=W, height=H,
          anchors_init=int(dec.anchor.shape[0]),
          anchors_final=int(ts.model.buffers.alive.sum()),
          capacity=int(ts.model.buffers.alive.shape[0]),
-         k1_launches=train_k1, k2_launches=train_k2,
-         ms_per_step_median=split["step_ms_median"],
-         ms_per_step_min=min(timed_ms), ms_per_step_max=max(timed_ms),
+         k1_launches=train_k1, k2_launches=train_k2, k3_launches=k3_train,
+         ms_per_step_median={ph: split[ph]["step_ms_median"]
+                             for ph in TRAIN_PHASES},
          split=split, densify=densified, peak_mem_gib=train_peak,
-         loss_first5=losses[:5], loss_last5=losses[-5:])
+         level_scales=ts.level_scales, level_calls=len(level_calls),
+         kept_and_level_counts_last=level_calls[-1] if level_calls else None,
+         loss_first5=losses[:5], loss_last5=losses[-5:],
+         bpp_context_first5=bpps[ctx_from - 1:ctx_from + 4],
+         bpp_last5=bpps[-5:])
     check(train_k2 == TRAIN_STEPS, "K2 launches on the training path != steps")
     check(train_k1 == TRAIN_STEPS, "K1 launches on the training path != steps")
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           "training losses finite")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]), "training loss falls")
-    check(len(densified) == 3, "densify ran at steps 20, 30 and 40")
-    emit(phase="train_profile", **profile_train_steps(
-        ts, tcfg, scene, dev, split["step_ms_median"]))
-    del ts, scene, dec, log
+    check(all(math.isfinite(b) and b > 0 for b in bpps[ctx_from - 1:]),
+          "bit_per_param finite and above 0 on every context step")
+    check(ts.level_scales is not None and len(ts.level_scales) == 2,
+          "level scales searched at the context transition")
+    check(len(level_calls) == TRAIN_STEPS - ctx_from + 1
+          and all(a == b for a, b in level_calls),
+          "one level map a context step, its counts summing to the kept set")
+    check(len(densified) == 6, "densify ran at steps 20 to 70")
+    for ph in ("noise", "context"):
+        emit(phase="train_profile", **profile_train_steps(
+            ts, tcfg, scene, dev, split[ph]["step_ms_median"], ph))
+
+    # the context phase's eval render of the final state, twice; the size
+    run = tstep.make_eval_render(tcfg, W, H, "context", ts.level_scales,
+                                 ts.voxel_size)
+    cam = scene.train_cameras[0].as_device_dict()
+    bg_t = torch.zeros(3, device=dev)
+    tile_kernel.launches = 0
+    images = [run(ts.model.params, ts.model.buffers, cam, bg_t)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    size_mb = tloop.estimate_bits(ts.model, tcfg, ts)
+    emit(phase="context_eval", k1_launches=tile_kernel.launches,
+         finite=bool(torch.isfinite(images[0]).all()),
+         identical=bool(torch.equal(images[0], images[1])),
+         image_mean=float(images[0].mean()), size_mb=size_mb)
+    check(tile_kernel.launches == 2 and bool(torch.isfinite(images[0]).all())
+          and torch.equal(images[0], images[1]),
+          "context eval render finite and bit-identical")
+    check(all(math.isfinite(v) and v >= 0 for v in size_mb.values())
+          and size_mb["total"] > 0, "size estimate")
+    del ts, scene, dec, log, images
 
     kept = k2_kept["args"]
     k2_res = compare_k2(*kept[:3], W, H, *kept[6:8], kept[10])
@@ -760,6 +1042,15 @@ def main() -> int:
     emit(phase="train_small_cpu_vs_card", cpu=cpu_losses, card=card_losses,
          max_rel=rel)
     check(rel <= 1e-3, "small training run CPU vs card")
+
+    (cpu_l, cpu_b), (card_l, card_b) = context_small_cpu_vs_card(dev)
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    rel_b = max(abs(a - b) / abs(b) for a, b in zip(card_b, cpu_b))
+    emit(phase="context_small_cpu_vs_card", cpu_loss=cpu_l, card_loss=card_l,
+         cpu_bpp=cpu_b, card_bpp=card_b, max_rel_loss=rel_l,
+         max_rel_bpp=rel_b)
+    check(rel_l <= 1e-3 and rel_b <= 1e-3 and min(cpu_b) > 0,
+          "small context run CPU vs card")
 
     # K2 on the main path's last inputs: time, bound
     k2_ms = cuda_ms(lambda: tile_kernel.blend_backward(*kept), 20)
@@ -782,8 +1073,22 @@ def main() -> int:
          bytes=n_bytes, fp32_ops=n_ops, **k2_bound,
          atomics=9 * pairs["bwd_warp_blended"], k2_ms=k2_ms,
          plain_ms=k2_plain_ms, share_of_bound=k2_bound["bound_ms"] / k2_ms)
+    del kept, rows, ids, bounds
 
-    # ---- 6. kernels line, card line, result ----
+    # ---- 6. K3 timed against torch.cumsum and its byte bound ----
+    scan.launches = 0
+    k3_times = dict(
+        tile_counts=time_k3(tile_counts),
+        packed_grad=time_k3(torch.randn(
+            (16, 1 << 20), generator=torch.Generator(dev).manual_seed(13),
+            device=dev)))
+    k3_bound_launches = scan.launches
+    for name, res in k3_times.items():
+        emit(phase="k3_bound", case=name, **res,
+             share_of_bound=res["bound_ms"] / res["k3_ms"])
+    k3_main = k3_times["tile_counts"]
+
+    # ---- 7. kernels line, card line, result ----
     def contract_label(bound):        # the kernels line says bytes or ops
         return "bytes" if bound["bound_by"] == "bytes" else "operations"
 
@@ -804,7 +1109,21 @@ def main() -> int:
              max_abs_err=k2_res["max_abs"], ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=k2_bound["bound_ms"],
              bound_by=contract_label(k2_bound),
-             bound_term=k2_bound["bound_by"], library_ms=None)]
+             bound_term=k2_bound["bound_by"], library_ms=None),
+        dict(name="lane_cumsum", route="cuda",
+             source="contextgs_tpu_torch/ops/csrc/scan.cu",
+             replaces="contextgs_tpu/ops/scan.py:61",
+             launches=k3_serve + k3_train,
+             launches_by_path=dict(serve=k3_serve, train=k3_train,
+                                   k3_check=k3_check_launches,
+                                   k3_bound=k3_bound_launches),
+             max_abs_err=k3_err, ms=k3_main["k3_ms"],
+             plain_ms=k3_main["plain_ms"], bound_ms=k3_main["bound_ms"],
+             bound_by="bytes", bound_term="bytes",
+             library_ms=k3_main["library_ms"],
+             device_ms=k3_main["k3_device_ms"],
+             library_device_ms=k3_main["library_device_ms"],
+             shape=k3_main["shape"], dtype=k3_main["dtype"])]
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

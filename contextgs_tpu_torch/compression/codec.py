@@ -19,6 +19,6 @@ class DecodedScene(NamedTuple):
     masks: torch.Tensor      # [N,K] {0,1}
     hyper: torch.Tensor      # [N,Fh]
     mlps: object             # models.mlps.DecoderMLPs
-    prior: dict | None
+    prior: object            # models.entropy.FactorizedPrior | None
     level_scales: list
     voxel_size: float

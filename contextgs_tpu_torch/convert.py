@@ -15,6 +15,7 @@ import torch
 from contextgs_tpu_torch.compression.codec import DecodedScene
 from contextgs_tpu_torch.config import ModelConfig
 from contextgs_tpu_torch.device import resolve_device
+from contextgs_tpu_torch.models.entropy import FactorizedPrior
 from contextgs_tpu_torch.models.mlps import MLP, DecoderMLPs
 from contextgs_tpu_torch.models.state import Buffers, Params, param_leaves
 from contextgs_tpu_torch.train.optim import AdamState
@@ -57,11 +58,12 @@ def mlps_from_numpy(mlps, cfg: ModelConfig, device=None) -> DecoderMLPs:
     return out.to(dev)
 
 
-def _prior_from_numpy(prior, device) -> dict | None:
+def _prior_from_numpy(prior, device) -> FactorizedPrior | None:
     if prior is None:
         return None
-    return {name: [_tensor(x, device) for x in getattr(prior, name)]
-            for name in prior._fields}
+    return FactorizedPrior(**{
+        name: tuple(_tensor(x, device) for x in getattr(prior, name))
+        for name in FactorizedPrior._fields})
 
 
 def params_from_numpy(params, cfg: ModelConfig, device=None) -> Params:

@@ -14,7 +14,8 @@ from typing import NamedTuple
 import torch
 
 from contextgs_tpu_torch.config import ModelConfig, OptimizationConfig
-from contextgs_tpu_torch.models import state as st
+from contextgs_tpu_torch.models import context, state as st
+from contextgs_tpu_torch.models.levels import LevelMaps
 from contextgs_tpu_torch.models.mlps import (apply_color, apply_cov,
                                              apply_feature_bank, apply_opacity)
 from contextgs_tpu_torch.models.quant import uniform_noise_quant
@@ -34,8 +35,8 @@ class NeuralGaussians(NamedTuple):
 
 
 class DecodeAux(NamedTuple):
-    rate: object | None
-    context: object | None
+    rate: context.RateSummary | None
+    context: context.ContextOutput | None
 
 
 def decode_neural_gaussians(
@@ -111,32 +112,52 @@ def generate_neural_gaussians(
     phase: str,                       # "plain" | "noise" | "context"
     training: bool,
     anchor_index: torch.Tensor | None = None,
+    maps: LevelMaps | None = None,    # required for phase="context"
 ) -> tuple[NeuralGaussians, DecodeAux]:
     """Training-schedule switchyard.
 
     phase="plain": raw parameters (step ≤ 3000, or a decoded-version eval);
     phase="noise": uniform noise at base Q on feat, grid scaling and offsets,
     drawn from `generator` in that order over all N anchors, whether or not
-    `training` is set (the reference does the same); phase="context" comes
-    with slice 3. With `anchor_index`, only those anchors are decoded (the
-    noise is still drawn for all N, so a draw does not depend on the view)
-    and the result covers their len(anchor_index)·K slots."""
-    if phase == "context":
-        raise NotImplementedError(
-            'phase="context" comes with the context and entropy slice '
-            "(ROADMAP.md queue 1, slice 3)")
-    if phase not in ("plain", "noise"):
+    `training` is set (the reference does the same); phase="context": the
+    multi-level context quantization over all N anchors (`maps` gives the
+    levels), noise of the predicted Q from `context.context_draws` and the
+    rate estimate in `DecodeAux` when training, STE rounding and no draws
+    otherwise. With `anchor_index`, only those anchors are decoded (noise
+    and context cover all N, so they do not depend on the view) and the
+    result covers their len(anchor_index)·K slots."""
+    if phase not in ("plain", "noise", "context"):
         raise ValueError(f"unknown phase {phase!r}")
     anchor_q = st.get_anchor(params, buffers)
     feat = params.anchor_feat
     grid_scaling = st.get_scaling(params)
     grid_offsets = params.offsets
+    aux = DecodeAux(rate=None, context=None)
     if phase == "noise":
         feat = uniform_noise_quant(feat, cfg.q_feat, generator)
         grid_scaling = uniform_noise_quant(grid_scaling, cfg.q_scaling,
                                            generator)
         grid_offsets = uniform_noise_quant(grid_offsets, cfg.q_offsets,
                                            generator)
+    elif phase == "context":
+        if maps is None:
+            raise ValueError('phase="context" needs the level maps')
+        n = anchor_q.shape[0]
+        # looked up on the module, so that a test can hand in its draws
+        draws = context.context_draws(generator, n, cfg, training,
+                                      anchor_q.device)
+        ctx = context.multi_scale_generate(params, buffers, cfg, maps,
+                                           anchor_q, draws, training,
+                                           disable_hyper=opt.disable_hyper)
+        feat, grid_scaling, grid_offsets = (ctx.feat_q, ctx.scaling_q,
+                                            ctx.offsets_q)
+        rate = None
+        if training:
+            rate = context.estimate_rate(
+                params, buffers, cfg, ctx, st.get_mask(params),
+                st.get_mask_anchor(params, buffers.alive), draws.rate,
+                sample_frac=opt.rate_sample_frac)
+        aux = DecodeAux(rate=rate, context=ctx)
     binary_mask = st.get_mask(params)
     if anchor_index is not None:
         feat, grid_scaling, grid_offsets, anchor_q, binary_mask, \
@@ -147,4 +168,4 @@ def generate_neural_gaussians(
         params, buffers, cfg, camera_center, visible_mask, feat=feat,
         grid_scaling=grid_scaling, grid_offsets=grid_offsets, anchor=anchor_q,
         binary_mask=binary_mask)
-    return ng, DecodeAux(rate=None, context=None)
+    return ng, aux

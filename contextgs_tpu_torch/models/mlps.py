@@ -5,8 +5,8 @@
 - color:   Linear(feat+3+1 → feat) ReLU Linear(feat → 3K) Sigmoid
 - feature_bank (optional): Linear(3+1 → feat) ReLU Linear(feat → 3) Softmax
 - grid[i]: Linear(in_i → 2·feat) ReLU Linear(2·feat → (feat+6+3K)·2+3), where
-  in_i = hyper+3 for the coarsest level, context_dim+hyper otherwise. Carried
-  for the context slice; the render path does not call them.
+  in_i = hyper+3 for the coarsest level, context_dim+hyper otherwise; the
+  context levels' entropy-parameter predictors (models/context.py).
 
 Init is U(±1/√fan_in) for weight and bias, as torch.nn.Linear's default,
 drawn from an explicit `torch.Generator`. `nn.Linear.weight` is [out, in];
@@ -77,3 +77,11 @@ def apply_color(p: DecoderMLPs, x: torch.Tensor) -> torch.Tensor:
 
 def apply_feature_bank(p: DecoderMLPs, x: torch.Tensor) -> torch.Tensor:
     return torch.softmax(p.feature_bank(x), dim=1)
+
+
+def apply_grid(p: DecoderMLPs, level: int, x: torch.Tensor) -> torch.Tensor:
+    return p.grid[level](x)
+
+
+def count_mlp_params(p: DecoderMLPs) -> int:
+    return sum(x.numel() for x in p.parameters())

@@ -22,6 +22,7 @@ from contextgs_tpu_torch.config import (ModelConfig, OptimizationConfig,
 from contextgs_tpu_torch.models import state as st
 from contextgs_tpu_torch.models.decode import (DecodeAux, NeuralGaussians,
                                                generate_neural_gaussians)
+from contextgs_tpu_torch.models.levels import LevelMaps
 from contextgs_tpu_torch.ops import rasterize as rz
 
 
@@ -71,12 +72,13 @@ def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
            width: int, height: int, bg: torch.Tensor,
            generator: torch.Generator | None = None,
            *, phase: str, training: bool = False,
+           maps: LevelMaps | None = None,
            visible_mask: torch.Tensor | None = None,
            screen_dummy: torch.Tensor | None = None,
            scale_modifier=1.0) -> RenderOutput:
     """Render one view; differentiable in the parameters and `screen_dummy`
-    ([N·K, 2], the densification hook). `generator` draws the noise phase's
-    noise."""
+    ([N·K, 2], the densification hook). `generator` draws the noise and
+    context phases' noise; `maps` are the context phase's level maps."""
     if pipe.tile_size != rz.TILE:
         raise ValueError(f"the port rasterizes {rz.TILE}x{rz.TILE} tiles, "
                          f"got pipe.tile_size={pipe.tile_size}")
@@ -91,7 +93,8 @@ def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
 
     ng, aux = generate_neural_gaussians(
         params, buffers, cfg, opt, cam["camera_center"], visible_mask,
-        generator, phase=phase, training=training, anchor_index=index)
+        generator, phase=phase, training=training, anchor_index=index,
+        maps=maps)
     if screen_dummy is not None:
         screen_dummy = screen_dummy[slots]
 

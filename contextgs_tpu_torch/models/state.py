@@ -3,9 +3,9 @@ of `contextgs_tpu/models/state.py`).
 
 The pools, the `alive` mask and the leaf names and shapes are those of the
 reference, so that its `Params` and `Buffers` carry across through numpy
-(see convert.py). The entropy slice is not ported yet: `Params.prior` holds
-the reference's factorized-prior tensors as a plain dict when converted, and
-is None after the port's own init.
+(see convert.py). `Params.prior` is the hyper latent's factorized prior
+(`entropy.FactorizedPrior`), created by `init_scene_model` as the reference's
+init creates it, so that Adam keeps moments for its leaves from the start.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import torch
 
 from contextgs_tpu_torch.config import ModelConfig
 from contextgs_tpu_torch.device import resolve_device
+from contextgs_tpu_torch.models.entropy import (FactorizedPrior,
+                                                init_factorized_prior)
 from contextgs_tpu_torch.models.mlps import DecoderMLPs, init_decoder_mlps
 from contextgs_tpu_torch.models.quant import mask_ste, quantize_anchor
 from contextgs_tpu_torch.ops.knn import mean_knn_sq_dist
@@ -34,7 +36,7 @@ class Params(NamedTuple):
     rotation: torch.Tensor      # [N,4] frozen identity
     opacity_raw: torch.Tensor   # [N,1] frozen (render opacity comes from MLP)
     mlps: DecoderMLPs
-    prior: dict | None
+    prior: FactorizedPrior | None
 
 
 class Buffers(NamedTuple):
@@ -67,10 +69,23 @@ def param_leaves(params: Params) -> dict:
     leaves = {name: getattr(params, name) for name in ANCHOR_FIELDS}
     for name, p in params.mlps.named_parameters():
         leaves[f"mlps.{name}"] = p.data
-    for name, tensors in (params.prior or {}).items():
-        for i, x in enumerate(tensors):
-            leaves[f"prior.{name}.{i}"] = x
+    if params.prior is not None:
+        for name, tensors in params.prior._asdict().items():
+            for i, x in enumerate(tensors):
+                leaves[f"prior.{name}.{i}"] = x
     return leaves
+
+
+def prior_from_leaves(leaves: dict) -> FactorizedPrior | None:
+    """The `FactorizedPrior` of the `prior.<field>.<i>` entries of `leaves`
+    (in order), or None if there are none."""
+    fields = {name: [] for name in FactorizedPrior._fields}
+    for name, x in leaves.items():
+        if name.startswith("prior."):
+            fields[name.split(".")[1]].append(x)
+    if not any(fields.values()):
+        return None
+    return FactorizedPrior(**{name: tuple(v) for name, v in fields.items()})
 
 
 def n_alive(model: SceneModel) -> int:
@@ -120,8 +135,9 @@ def init_scene_model(points: np.ndarray, cfg: ModelConfig,
     """Build the padded scene state from an SfM point cloud.
 
     Returns (model, voxel_size); voxel_size is derived from the kNN median
-    when cfg.voxel_size <= 0. The MLP weights come from `generator` (a CPU
-    `torch.Generator`), so they differ from the reference's JAX draws."""
+    when cfg.voxel_size <= 0. The MLP weights, then the prior's biases, come
+    from `generator` (a CPU `torch.Generator`), so they differ from the
+    reference's JAX draws."""
     dev = resolve_device(device)
     voxel_size = cfg.voxel_size
     if voxel_size <= 0:
@@ -161,7 +177,7 @@ def init_scene_model(points: np.ndarray, cfg: ModelConfig,
         opacity_raw=torch.full((capacity, 1), float(np.log(0.1 / 0.9)),
                                dtype=torch.float32, device=dev),
         mlps=init_decoder_mlps(cfg, generator, dev),
-        prior=None,
+        prior=init_factorized_prior(cfg.hyper_dim, generator, dev),
     )
     alive = torch.arange(capacity, device=dev) < n
     buffers = Buffers(

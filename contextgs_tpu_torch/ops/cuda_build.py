@@ -81,3 +81,13 @@ def load_library(source: Path) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(source)))
             _libraries[source] = lib
         return lib
+
+
+def c_function(source: Path, name: str, argtypes: list):
+    """The C function `name` of `source`'s library, returning an int (the
+    CUDA error of its launches), with `argtypes` set."""
+    fn = getattr(load_library(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

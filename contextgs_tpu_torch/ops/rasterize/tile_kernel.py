@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from contextgs_tpu_torch.ops.cuda_build import load_library
+from contextgs_tpu_torch.ops.cuda_build import c_function
 from contextgs_tpu_torch.ops.rasterize.common import T_EPS
 from contextgs_tpu_torch.ops.rasterize.reference import (
     blend_tiles_backward_reference, blend_tiles_reference)
@@ -32,14 +32,6 @@ ROW = 9            # mean xy, conic abc, opacity, rgb
 
 launches = 0
 backward_launches = 0
-
-
-def _function(source: Path, name: str, argtypes: list):
-    fn = getattr(load_library(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
 
 
 def _check(name: str, device, tensors) -> None:
@@ -98,7 +90,7 @@ def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     last = torch.empty((height, width), dtype=torch.int32, device=rows.device)
     if n_tiles == 0:
         return rgb, final_t, last
-    fn = _function(SOURCE, "blend_forward",
+    fn = c_function(SOURCE, "blend_forward",
                    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_float] + [ctypes.c_void_p] * 4)
     with torch.cuda.device(rows.device):
@@ -141,7 +133,7 @@ def blend_backward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     d_rows = torch.zeros_like(rows)
     if n_tiles == 0:
         return d_rows
-    fn = _function(BACKWARD_SOURCE, "blend_backward",
+    fn = c_function(BACKWARD_SOURCE, "blend_backward",
                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p] * 2)
     with torch.cuda.device(rows.device):

@@ -1,15 +1,17 @@
 """Host-side training orchestration (port of `contextgs_tpu/train/loop.py`).
 
-Random camera order from a numpy Generator, the per-phase schedule,
-densification every `update_interval` steps inside (update_from,
-update_until) except in [3000, 4000), pool growth when densification runs
-out of free slots, the `test_iterations` evaluation, logging, checkpoints and
-resume.
+Random camera order from a numpy Generator, the per-phase schedule (plain,
+noise, context), densification every `update_interval` steps inside
+(update_from, update_until) except in [3000, 4000), pool growth when
+densification runs out of free slots, the anchor-bound refresh and the
+level-scale search at the context transition, the model's size estimate
+every 2000 context steps, the `test_iterations` evaluation, logging,
+checkpoints and resume.
 
 The reference's static-shape machinery — the instance budget, `vis_cap` and
 their watermark adaptation — has no counterpart: the port's shapes are
-dynamic. The context phase (slice 3) and `save_iterations` snapshots with a
-`model_path` (the ply writer, slice 5) raise `NotImplementedError`.
+dynamic. `save_iterations` snapshots with a `model_path` (the ply writer,
+slice 5) raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -26,11 +28,15 @@ import torch
 from contextgs_tpu_torch.config import TrainConfig
 from contextgs_tpu_torch.device import resolve_device
 from contextgs_tpu_torch.models import densify, state as st
+from contextgs_tpu_torch.models.context import estimate_total_bits
+from contextgs_tpu_torch.models.levels import find_divide_scale
+from contextgs_tpu_torch.models.mlps import count_mlp_params
 from contextgs_tpu_torch.models.state import Buffers, SceneModel
 from contextgs_tpu_torch.ops.ssim import psnr as psnr_fn
 from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
 from contextgs_tpu_torch.train.optim import AdamState, init_adam
-from contextgs_tpu_torch.train.step import make_eval_render, make_train_step
+from contextgs_tpu_torch.train.step import (kept_level_maps, make_eval_render,
+                                            make_train_step)
 from contextgs_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   save_checkpoint)
 
@@ -50,6 +56,25 @@ class TrainerState:
     iteration: int = 0
     rng: np.random.Generator = field(
         default_factory=lambda: np.random.default_rng(0))
+
+
+@torch.no_grad()
+def estimate_bits(model: SceneModel, cfg: TrainConfig,
+                  ts: TrainerState) -> dict:
+    """The model's estimate of its bitstream in MB per stream, the MLPs and
+    the prior at 32 bits a parameter, and the total."""
+    p, b = model.params, model.buffers
+    maps = kept_level_maps(p, b, cfg.model, ts.voxel_size,
+                           tuple(ts.level_scales or ()))
+    bits = estimate_total_bits(p, b, cfg.model, maps, st.get_anchor(p, b),
+                               disable_hyper=cfg.opt.disable_hyper)
+    mb = {k: round(float(v) / 8 / 1024 / 1024, 4) for k, v in bits.items()}
+    n_prior = sum(x.numel() for name, x in st.param_leaves(p).items()
+                  if name.startswith("prior."))
+    mb["mlp"] = round((count_mlp_params(p.mlps) + n_prior) * 32
+                      / 8 / 1024 / 1024, 4)
+    mb["total"] = round(sum(mb.values()), 4)
+    return mb
 
 
 def phase_of(it: int, cfg: TrainConfig) -> str:
@@ -141,14 +166,30 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
     for it in range(ts.iteration + 1, opt.iterations + 1):
         ts.iteration = it
         phase = phase_of(it, cfg)
+        if it == opt.context_from + 1:
+            # the context transition: refresh the anchor bounds, search the
+            # level scales once over the kept anchors
+            model = ts.model = SceneModel(model.params, st.update_anchor_bound(
+                model.buffers, model.params.anchor, model.buffers.alive))
+            if ts.level_scales is None:
+                kept = st.get_mask_anchor(model.params, model.buffers.alive)
+                ts.level_scales = find_divide_scale(
+                    model.params.anchor[kept].cpu().numpy(), ts.voxel_size,
+                    model.buffers.bound_min.cpu().numpy(),
+                    model.buffers.bound_max.cpu().numpy(),
+                    cfg.model.target_ratio, cfg.model.level_num)
+                log.info("level scales: %s", ts.level_scales)
+            step_fns.clear()
+            eval_fns.clear()
         if not order:
             order = [int(i) for i in ts.rng.permutation(len(cams))]
         ci = order.pop()
 
         lk = (phase, cams[ci].width, cams[ci].height)
         if lk not in step_fns:
-            step_fns[lk] = make_train_step(cfg, lk[1], lk[2], phase,
-                                           ts.spatial_lr_scale)
+            step_fns[lk] = make_train_step(
+                cfg, lk[1], lk[2], phase, ts.spatial_lr_scale,
+                level_scales=ts.level_scales or (), voxel_size=ts.voxel_size)
         params, buffers, adam, metrics = step_fns[lk](
             model.params, model.buffers, ts.adam, cam_dicts[ci], gts[ci], bg,
             it, opt.start_stat < it < opt.update_until, ts.generator)
@@ -182,8 +223,10 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
             for c in scene.test_cameras:
                 ek = (phase, c.width, c.height)
                 if ek not in eval_fns:
-                    eval_fns[ek] = make_eval_render(cfg, c.width, c.height,
-                                                    phase)
+                    eval_fns[ek] = make_eval_render(
+                        cfg, c.width, c.height, phase,
+                        level_scales=ts.level_scales or (),
+                        voxel_size=ts.voxel_size)
                 img = eval_fns[ek](model.params, model.buffers,
                                    c.as_device_dict(), bg, gen)
                 psnrs.append(float(psnr_fn(img, _to_image(c, dev))))
@@ -193,6 +236,9 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
             log.info("iter %d [%s]: loss=%.5f psnr=%.2f bpp=%.4f anchors=%d",
                      it, phase, float(metrics.loss), float(metrics.psnr),
                      float(metrics.bit_per_param), st.n_alive(model))
+        if phase == "context" and it % 2000 == 0:
+            log.info("iter %d size estimate: %s", it,
+                     estimate_bits(model, cfg, ts))
 
         if it in cfg.checkpoint_iterations and cfg.model_path:
             os.makedirs(cfg.model_path, exist_ok=True)

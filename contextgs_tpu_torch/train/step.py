@@ -2,10 +2,12 @@
 (port of `contextgs_tpu/train/step.py`).
 
 loss = lmbda_rec·((1−λ_ssim)·L1 + λ_ssim·(1−SSIM)) + scaling_reg_weight·Π̄scaling
-over the valid gaussians. The plain and noise phases are ported; the context
-phase (rate loss, mask regulariser) comes with slice 3 and raises. The
-densification statistics come from the gradient of a zero `screen_dummy`
-added to the projected means, as in the reference.
+over the valid gaussians, plus λ·bit_per_param + mask_reg_weight·mean σ(mask)
+over the alive anchors in the context phase. The context phase builds its
+level maps over the kept set (alive ∧ mask_anchor), as the encoder does, from
+the detached quantized anchors. The densification statistics come from the
+gradient of a zero `screen_dummy` added to the projected means, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -14,14 +16,15 @@ from typing import NamedTuple
 
 import torch
 
-from contextgs_tpu_torch.config import TrainConfig
-from contextgs_tpu_torch.models import densify
+from contextgs_tpu_torch.config import ModelConfig, TrainConfig
+from contextgs_tpu_torch.models import densify, state as st
+from contextgs_tpu_torch.models.levels import LevelMaps, build_level_maps
 from contextgs_tpu_torch.models.renderer import render
 from contextgs_tpu_torch.models.state import ANCHOR_FIELDS, Buffers, Params
 from contextgs_tpu_torch.ops.ssim import l1_loss, psnr, ssim
 from contextgs_tpu_torch.train.optim import AdamState, adam_update
 
-PHASES = ("plain", "noise")
+PHASES = ("plain", "noise", "context")
 
 
 class StepMetrics(NamedTuple):
@@ -36,40 +39,66 @@ class StepMetrics(NamedTuple):
     n_vis: torch.Tensor          # gaussians touching >= 1 tile
 
 
-def _check_phase(phase: str) -> None:
-    if phase == "context":
-        raise NotImplementedError(
-            'the training phase "context" (rate loss, level maps) comes with '
-            "the context and entropy slice (ROADMAP.md queue 1, slice 3)")
+def _check_phase(phase: str, mcfg: ModelConfig, level_scales) -> None:
     if phase not in PHASES:
         raise ValueError(f"unknown phase {phase!r}")
+    if phase == "context" and len(level_scales) != mcfg.level_num - 1:
+        raise ValueError(f'phase="context" needs {mcfg.level_num - 1} level '
+                         f"scales, got {list(level_scales)}")
+
+
+def kept_level_maps(params: Params, buffers: Buffers, mcfg: ModelConfig,
+                    voxel_size: float, level_scales) -> LevelMaps:
+    """Level maps over the kept set (alive ∧ mask_anchor) of the detached
+    quantized anchors."""
+    return build_level_maps(
+        st.get_anchor(params, buffers).detach(),
+        st.get_mask_anchor(params, buffers.alive), voxel_size,
+        level_scales, mcfg.level_num)
+
+
+def _grad_leaves(params: Params):
+    """(params whose anchor fields and prior are fresh leaves that require
+    grad, {leaf name: tensor autograd differentiates}, in the order of
+    `state.param_leaves`); the MLPs are differentiated through their own
+    parameters."""
+    mlp = dict(params.mlps.named_parameters())
+    leaves = {name: mlp[name[5:]] if name.startswith("mlps.")
+              else x.detach().requires_grad_(True)
+              for name, x in st.param_leaves(params).items()}
+    p = params._replace(prior=st.prior_from_leaves(leaves),
+                        **{name: leaves[name] for name in ANCHOR_FIELDS})
+    return p, leaves
 
 
 def make_train_step(cfg: TrainConfig, width: int, height: int, phase: str,
-                    spatial_lr_scale: float):
+                    spatial_lr_scale: float, level_scales=(),
+                    voxel_size: float = 0.0):
     """The step of one (phase, resolution):
     `step(params, buffers, adam, cam, gt_image, bg, it, with_stats,
     generator=None) -> (params, buffers, adam, metrics)`. Parameters and
     Adam moments are updated in place (see `adam_update`); `with_stats` is a
-    Python bool; `generator` draws the noise phase's noise."""
-    _check_phase(phase)
+    Python bool; `generator` draws the noise and context phases' noise. The
+    context phase needs the level scales and the voxel size."""
     mcfg, opt, pipe = cfg.model, cfg.opt, cfg.pipe
+    _check_phase(phase, mcfg, level_scales)
+    level_scales = tuple(level_scales)
 
     def step(params: Params, buffers: Buffers, adam: AdamState, cam: dict,
              gt_image: torch.Tensor, bg: torch.Tensor, it: int,
              with_stats: bool, generator: torch.Generator | None = None):
-        leaves = {name: getattr(params, name).detach().requires_grad_(True)
-                  for name in ANCHOR_FIELDS}
-        leaves.update((f"mlps.{name}", p)
-                      for name, p in params.mlps.named_parameters())
-        p = params._replace(**{name: leaves[name] for name in ANCHOR_FIELDS})
+        maps = None
+        if phase == "context":
+            maps = kept_level_maps(params, buffers, mcfg, voxel_size,
+                                   level_scales)
+        p, leaves = _grad_leaves(params)
         nk = params.offsets.shape[0] * mcfg.n_offsets
         screen_dummy = torch.zeros((nk, 2), dtype=torch.float32,
                                    device=params.anchor.device,
                                    requires_grad=True)
 
         out = render(p, buffers, mcfg, opt, pipe, cam, width, height, bg,
-                     generator, phase=phase, training=True,
+                     generator, phase=phase, training=True, maps=maps,
                      screen_dummy=screen_dummy)
         l1 = l1_loss(out.image, gt_image)
         ssim_v = ssim(out.image, gt_image)
@@ -83,6 +112,13 @@ def make_train_step(cfg: TrainConfig, width: int, height: int, phase: str,
         loss = (opt.lmbda_rec * ((1.0 - opt.lambda_dssim) * l1
                                  + opt.lambda_dssim * (1.0 - ssim_v))
                 + opt.scaling_reg_weight * scaling_reg)
+        bpp = torch.zeros((), device=loss.device)
+        if phase == "context":
+            bpp = out.aux.rate.bit_per_param
+            alive = buffers.alive
+            mask_mean = ((torch.sigmoid(p.mask_logit) * alive[:, None]).sum()
+                         / torch.clamp(alive.sum() * mcfg.n_offsets, min=1))
+            loss = loss + opt.lmbda * bpp + opt.mask_reg_weight * mask_mean
 
         names = list(leaves)
         grads = torch.autograd.grad(loss, [leaves[n] for n in names]
@@ -104,7 +140,7 @@ def make_train_step(cfg: TrainConfig, width: int, height: int, phase: str,
             metrics = StepMetrics(
                 loss=loss.detach(), l1=l1.detach(),
                 psnr=psnr(out.image.detach(), gt_image),
-                bit_per_param=torch.zeros((), device=loss.device),
+                bit_per_param=bpp.detach(),
                 n_visible_gauss=gv.sum(), overflowed=out.overflowed,
                 vis_overflowed=out.vis_overflowed,
                 n_instances=out.n_instances, n_vis=out.n_vis)
@@ -113,17 +149,25 @@ def make_train_step(cfg: TrainConfig, width: int, height: int, phase: str,
     return step
 
 
-def make_eval_render(cfg: TrainConfig, width: int, height: int, phase: str):
+def make_eval_render(cfg: TrainConfig, width: int, height: int, phase: str,
+                     level_scales=(), voxel_size: float = 0.0):
     """Eval-time render `run(params, buffers, cam, bg, generator=None) ->
     image [3,H,W]`. In the noise phase it draws noise from `generator`, as
-    the reference's eval render does."""
-    _check_phase(phase)
+    the reference's eval render does; the context phase quantizes by STE
+    rounding over the kept set's level maps and draws nothing."""
     mcfg, opt, pipe = cfg.model, cfg.opt, cfg.pipe
+    _check_phase(phase, mcfg, level_scales)
+    level_scales = tuple(level_scales)
 
     @torch.no_grad()
     def run(params: Params, buffers: Buffers, cam: dict, bg: torch.Tensor,
             generator: torch.Generator | None = None) -> torch.Tensor:
+        maps = None
+        if phase == "context":
+            maps = kept_level_maps(params, buffers, mcfg, voxel_size,
+                                   level_scales)
         return render(params, buffers, mcfg, opt, pipe, cam, width, height,
-                      bg, generator, phase=phase, training=False).image
+                      bg, generator, phase=phase, training=False,
+                      maps=maps).image
 
     return run

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from contextgs_tpu_torch.models.state import (ANCHOR_FIELDS, Buffers, Params,
-                                              param_leaves)
+                                              param_leaves, prior_from_leaves)
 from contextgs_tpu_torch.train.optim import AdamState
 
 
@@ -41,14 +41,9 @@ def load_checkpoint(path: str, params: Params, device) -> tuple:
     with torch.no_grad():
         for name, p in params.mlps.named_parameters():
             p.copy_(saved[f"mlps.{name}"])
-    prior = None
-    if any(name.startswith("prior.") for name in saved):
-        prior = {}
-        for name, x in saved.items():
-            if name.startswith("prior."):
-                _, field, _ = name.split(".")
-                prior.setdefault(field, []).append(put(x))
-    params = params._replace(prior=prior,
+    params = params._replace(prior=prior_from_leaves(
+        {name: put(x) for name, x in saved.items()
+         if name.startswith("prior.")}),
                              **{f: put(saved[f]) for f in ANCHOR_FIELDS})
     buffers = Buffers(**{f: put(x) for f, x in data["buffers"].items()})
     adam = AdamState(mu={n: put(x) for n, x in data["adam_mu"].items()},

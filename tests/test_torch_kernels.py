@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1 (tile-blend forward) and K2 (its backward)
-against their plain versions.
+"""The port's CUDA kernels K1 (tile-blend forward), K2 (its backward) and K3
+(the lane prefix sum) against their plain versions.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from contextgs_tpu_torch.ops import rasterize as trz
+from contextgs_tpu_torch.ops import scan as tscan
 from contextgs_tpu_torch.ops.rasterize import reference as tref
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
 from contextgs_tpu_torch.scene.cameras import make_camera
@@ -334,3 +335,54 @@ def test_blend_backward_kernel_matches_plain_version(case):
     assert bool(torch.isfinite(got).all()) and float(got.abs().max()) > 0
     assert _envelope_error(got, rows, ids, bounds, w, h, d_rgb,
                            d_ft) <= 1.5e-3
+
+
+K3_CASES = {                     # name: (shape, dtype, exclusive)
+    "i32_wrap": ((2, 100_000), np.int32, False),
+    "i32_1d_exclusive": ((5000,), np.int32, True),
+    "i32_one_row_1M": ((1, 1 << 20), np.int32, False),
+    "i32_1M_exclusive": ((1, (1 << 20) + 3), np.int32, True),
+    "u32": ((3, 10_000), np.uint32, False),
+    "f32": ((8, 33_000), np.float32, False),
+    "f32_one_row_exclusive": ((1, 300_001), np.float32, True),
+    **{f"i32_{n}_{e}": ((8, n), np.int32, e == "exclusive")
+       for n in (1, 127, 129, 4097) for e in ("inclusive", "exclusive")},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_lane_cumsum_kernel_matches_plain_version(case):
+    """K3 against its plain version on the card: int32 and uint32 exact
+    (two's complement wrap included), float32 within
+    `scan.float_tolerance(N)` · Σ_{j≤i}|x_j| of a float64 prefix."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    shape, dtype, exclusive = K3_CASES[case]
+    rng = np.random.default_rng(6)
+    if dtype == np.float32:
+        x = rng.normal(size=shape).astype(np.float32)
+    elif dtype == np.uint32:
+        x = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    else:
+        x = rng.integers(-(2 ** 28), 2 ** 28, shape).astype(np.int32)
+    xt = torch.from_numpy(x).cuda()
+    before = tscan.launches
+    got = tscan.lane_cumsum(xt, exclusive=exclusive)
+    torch.cuda.synchronize()
+    assert tscan.launches == before + 1
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    if dtype == np.float32:
+        x64 = x.astype(np.float64)
+        ref = np.cumsum(x64, axis=-1)
+        mag = np.cumsum(np.abs(x64), axis=-1)
+        if exclusive:
+            ref = ref - x64
+            mag = mag - np.abs(x64)
+        err = np.abs(got.cpu().numpy() - ref)
+        assert (err <= tscan.float_tolerance(shape[-1]) * mag + 1e-30).all()
+    else:
+        sign = got if dtype == np.int32 else got.view(torch.int32)
+        want = tscan.lane_cumsum_reference(
+            xt if dtype == np.int32 else xt.view(torch.int32), exclusive)
+        np.testing.assert_array_equal(sign.cpu().numpy(), want.cpu().numpy())

@@ -175,7 +175,7 @@ def test_render_plain_matches_jax():
     np.testing.assert_allclose(out_t.final_t.numpy(),
                                np.asarray(out_j.final_t), atol=2e-5)
     assert out_t.n_instances == int(out_j.n_instances)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="needs the level maps"):
         trenderer.render(pt, bt, cfg_t, tcfg.OptimizationConfig(),
                          tcfg.PipelineConfig(), cd, W, H, _t(bg),
                          phase="context")
@@ -200,7 +200,12 @@ def test_init_scene_model_matches_jax(rng, voxel_size):
             np.testing.assert_allclose(getattr(obj_t, name).numpy(),
                                        np.asarray(getattr(obj_j, name)),
                                        rtol=1e-6, atol=1e-6, err_msg=name)
-    assert mt.params.prior is None
+    for name in ("matrices", "biases", "factors"):
+        for x_t, x_j in zip(getattr(mt.params.prior, name),
+                            getattr(mj.params.prior, name)):
+            assert x_t.shape == x_j.shape, name
+            if name != "biases":          # constant init; biases are drawn
+                np.testing.assert_array_equal(x_t.numpy(), np.asarray(x_j))
     n = int(mt.buffers.alive.sum())
     w = mt.params.mlps.opacity.l1.weight
     assert 0 < n < len(mt.buffers.alive) and w.abs().max() <= 1 / 12 ** 0.5

@@ -360,21 +360,65 @@ def test_train_plain_and_noise_with_densify(caplog):
 
 
 def test_train_reaching_context_or_a_snapshot_raises(tmp_path):
+    """The context phase runs (it raised before the context slice); a
+    snapshot with a model_path still raises."""
     cfg = _tiny_cfg(iterations=4, noise_from=1, context_from=2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tloop.train(cfg, _tiny_scene(), device="cpu")
+    bpp = []
+    ts = tloop.train(cfg, _tiny_scene(), device="cpu",
+                     callback=lambda it, ts, m: bpp.append(
+                         float(m.bit_per_param)))
+    assert bpp[:2] == [0.0, 0.0] and min(bpp[2:]) > 0
+    assert len(ts.level_scales) == cfg.model.level_num - 1
     cfg = tcfg.TrainConfig(model=cfg.model, model_path=str(tmp_path),
                            save_iterations=(4,))
     with pytest.raises(NotImplementedError, match="slice 5"):
         tloop.train(cfg, _tiny_scene(), device="cpu")
 
 
-def test_resume_matches_continuous_run(tmp_path):
+def test_train_plain_noise_and_context(caplog):
+    """All three phases with densification: finite, falling loss;
+    bit_per_param finite and above 0 on every context step; the level scales
+    searched once, at the transition; and the model's size estimate."""
+    cfg = _tiny_cfg(iterations=40, noise_from=8, context_from=16,
+                    start_stat=2, update_from=4, update_interval=10,
+                    update_until=30)
+    losses, bpp, phases = [], [], []
+
+    def cb(it, ts, metrics):
+        losses.append(float(metrics.loss))
+        bpp.append(float(metrics.bit_per_param))
+        phases.append(tloop.phase_of(it, cfg))
+
+    with caplog.at_level(logging.INFO, logger="contextgs_tpu_torch"):
+        ts = tloop.train(cfg, _tiny_scene(), device="cpu", callback=cb)
+    assert phases == ["plain"] * 8 + ["noise"] * 8 + ["context"] * 24
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]), losses
+    ctx = np.asarray(bpp[16:])
+    assert np.isfinite(ctx).all() and (ctx > 0).all() and bpp[:16] == [0] * 16
+    messages = [r.message for r in caplog.records]
+    assert sum(m.startswith("level scales") for m in messages) == 1
+    assert len(ts.level_scales) == cfg.model.level_num - 1
+    assert sum("densify" in m for m in messages) == 2          # 10 and 20
+    est = tloop.estimate_bits(ts.model, cfg, ts)
+    assert set(est) == {"anchor", "hyper", "feat", "scaling", "offsets",
+                        "masks", "mlp", "total"}
+    # MB rounded to 4 places: a tiny scene's feat and mask streams round to 0
+    assert min(est.values()) >= 0 and est["mlp"] > 0 and est["anchor"] > 0
+    assert est["total"] == pytest.approx(
+        sum(v for k, v in est.items() if k != "total"), abs=1e-3)
+
+
+@pytest.mark.parametrize("context_from", [100, 7])
+def test_resume_matches_continuous_run(tmp_path, context_from):
     """A run resumed from a checkpoint repeats the continuous run bit for
-    bit, through the noise phase and a densification after the resume."""
+    bit, through the noise phase and a densification after the resume, and
+    (context_from 7) through the context transition: bound refresh, level
+    scale search and context steps after the resume."""
     scene = _tiny_scene()
-    opt = dict(iterations=10, noise_from=3, context_from=100, start_stat=1,
-               update_from=4, update_interval=4, update_until=100)
+    opt = dict(iterations=10, noise_from=3, context_from=context_from,
+               start_stat=1, update_from=4, update_interval=4,
+               update_until=100)
     cont = []
     tloop.train(_tiny_cfg(**opt), scene, device="cpu",
                 callback=lambda it, ts, m: cont.append(float(m.loss)))
@@ -400,15 +444,27 @@ def test_resume_matches_continuous_run(tmp_path):
 def test_test_iterations_evaluate_every_test_camera(caplog):
     cfg = tcfg.TrainConfig(
         model=_tiny_cfg().model,
-        opt=tcfg.OptimizationConfig(iterations=4, noise_from=2,
-                                    context_from=100, update_from=100),
-        test_iterations=(2, 4), save_iterations=(), log_every=1000)
+        opt=tcfg.OptimizationConfig(iterations=6, noise_from=2,
+                                    context_from=4, update_from=100),
+        test_iterations=(2, 4, 6), save_iterations=(), log_every=1000)
     with caplog.at_level(logging.INFO, logger="contextgs_tpu_torch"):
-        tloop.train(cfg, _tiny_scene(n_train=2, n_test=3), device="cpu")
+        ts = tloop.train(cfg, _tiny_scene(n_train=2, n_test=3), device="cpu")
     lines = [r.message for r in caplog.records if "test [" in r.message]
-    assert len(lines) == 2
+    assert len(lines) == 3
     assert "test [plain]" in lines[0] and "test [noise]" in lines[1]
+    assert "test [context]" in lines[2]
     assert all("over 3 views" in line for line in lines)
+    # the context phase's eval quantizes by rounding and draws nothing
+    cam = _tiny_scene(n_train=2, n_test=3).test_cameras[0]
+    run = tstep.make_eval_render(cfg, cam.width, cam.height, "context",
+                                 ts.level_scales, ts.voxel_size)
+    bg = torch.zeros(3)
+    gen = torch.Generator().manual_seed(1)
+    state = gen.get_state()
+    images = [run(ts.model.params, ts.model.buffers, cam.as_device_dict(), bg,
+                  gen) for _ in range(2)]
+    assert torch.equal(gen.get_state(), state)
+    assert torch.equal(images[0], images[1]) and float(images[0].sum()) > 0
 
 
 def test_grow_capacity_pads_the_pool():

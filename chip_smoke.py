@@ -6,8 +6,14 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
 
 Phases, one JSON object per line; any failed check exits non-zero:
 
-1. device  — the card's name and power limit; K1, K2 and K3 built from the
-   sources in the checkout (nvcc, sm_90a, one process each, together).
+1. device  — the card's name and power limit; K1, K2, K3, K4
+   (scripts/csrc/kvariants.cu) and K5/K6 (scripts/csrc/xpose.cu) built from
+   the sources in the checkout (nvcc, sm_90a, one process each, together),
+   with ptxas's register and shared-memory lines. k4_sass: K4's levels in
+   the SASS cuobjdump prints (skipped where the toolkit has none), so that
+   the sinks are seen to keep every stage's work: the bounds' loads at
+   level 0, the row gather's loads and staging stores from level 1 on, the
+   exp from level 2 on only, and a walk that grows from level 2 to 4.
 2. k1_check — K1 against its plain PyTorch version on the card: golden small
    cases (2e-5), then a 1280x720 view of a 20k-anchor decoded scene (max
    2e-4, mean 1e-6: an include decision at T·(1-α) ≈ 1e-4 may flip between
@@ -24,6 +30,12 @@ Phases, one JSON object per line; any failed check exits non-zero:
    the sizes 1, 127, 129 and 4097 inclusive and exclusive, a 1-D exclusive
    row and one row of 1M (many blocks); float32 within
    scan.float_tolerance(N) · Σ|x| of a float64 prefix.
+   k4_check — every level of K4 against its plain version and K1 on the
+   golden cases and the kernel lab's 1x3600 table: v0 exact, the sinks of
+   v1 and v2 1e-5 relative, v3's sink (unscaled) and v4 with K1's
+   tolerances; v4 bit-equal to K1, v3's T and last_contrib equal to K1's.
+   k56_check — K5 and K6 equal to x.transpose(1, 2).contiguous() at the
+   lab's [8394, 128, 16] and at ragged slab counts.
 3. serve — the main path of serving at full width: a decoded scene of
    ModelConfig() width (feat_dim 50, 10 offsets) and 100k anchors, built with
    the recipe of scripts/fps_bench.py from a seed, rendered by
@@ -33,7 +45,9 @@ Phases, one JSON object per line; any failed check exits non-zero:
    just before and read just after, and must equal the number of views; K1's
    inputs of the last view are kept from this run. Then a second pass over
    the orbit with CUDA events around the renderer's module-level calls (the
-   stage split), K1 checked, timed and bounded on the kept inputs, the small
+   stage split), K1 checked, timed and bounded on the kept inputs,
+   k4_check and k4_decompose on them (each level of K4 timed beside K1,
+   with its increment and bound, and the per-tile list lengths), the small
    CPU-vs-card check, and render(phase="plain") from init_scene_model over a
    seeded 100k-point cloud. K3's count is set to 0 with K1's and read
    after: K3 is off the main path (the rasterizer's prefix sums are
@@ -67,12 +81,23 @@ Phases, one JSON object per line; any failed check exits non-zero:
    counts ([1, n] int32, the input of ops/rasterize/sorting.py's first
    cumsum) and on [16, 2^20] float32 N(0,1) (the lane-major form of the
    reference's packed gradient prefix), each against its byte bound.
-7. the `kernels` line, then the card line from nvidia-smi, then the result.
+7. the kernel labs, each lab's counts set to 0 just before and read just
+   after: kvariants_lab (kvariants.run_all, K4's five levels on the lab's
+   1x3600, 2x3600 and 8x450 tables), then k4_decompose per table (K1 timed
+   on the same inputs, each level's bound, the plain versions on 1x3600)
+   and k4_uneven_tiles (8x450 over 1x3600); xpose_lab (xpose_lab.run_all:
+   K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
+   the slab transpose's byte bound.
+8. the `kernels` line, then the card line from nvidia-smi, then the result.
 """
 
+import collections
 import contextlib
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -103,6 +128,13 @@ OPS = dict(evaluated=11, exp=2, tested=2, blended=7)
 # the colour gradients and the T update (20), the gradients of opacity, mean
 # and conic (19), and the 9 additions that sum the pixels' values (9).
 OPS_K2 = dict(bwd_evaluated=11, bwd_exp=2, bwd_blended=48)
+# float32 operations of K4's levels 2 and 3 (scripts/csrc/kvariants.cu) on a
+# pair, keyed as OPS: level 2 walks every listed pair without an early exit
+# and adds each alpha >= 1/255 to its sink (1); level 3 adds T·(1-α) (2) and,
+# for a blended pair, α·T and the sink's add (2). Level 4 is K1: OPS.
+OPS_K4 = {2: dict(evaluated=11, exp=2, tested=1),
+          3: dict(evaluated=11, exp=2, tested=2, blended=2), 4: OPS}
+K4_LEVELS = range(5)
 ENVELOPE = 1.5e-3            # K2 against the plain envelope, of max |grad|
 TRAIN_STEPS = 90
 # first and last step of each phase of the train cell
@@ -132,17 +164,43 @@ def check(ok, what):
 
 
 def cuda_ms(fn, reps):
-    """Mean device time of `fn` over `reps` calls, by CUDA events."""
-    fn()
-    torch.cuda.synchronize()
+    """Mean device time of `fn` over `reps` back-to-back calls after a
+    warm-up, by CUDA events."""
+    from contextgs_tpu_torch.scripts import time_ms
+
+    return time_ms(fn, torch.device("cuda"), reps)
+
+
+def card_ms(fn, reps=20, cold=False):
+    """Mean time of a call of `fn` on the card with the host's launch gaps
+    hidden: the card spins (`torch.cuda._sleep`) while the host enqueues,
+    and CUDA events bracket the calls alone. Warm: `reps` calls back to
+    back, the later finding in the 50 MB L2 what the earlier left there.
+    Cold: each call alone after the card reads 256 MB, five times the L2, so
+    that the cache holds clean lines of that buffer only (a write would
+    leave dirty lines for the call to write back)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    fn()
+    if not cold:
+        torch.cuda._sleep(1 << 23)        # ~4 ms, for the host to enqueue
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
+    total = 0.0
     for _ in range(reps):
+        flush.sum()
+        torch.cuda._sleep(1 << 20)        # ~0.5 ms
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def decoded_scene(n_anchors, seed, cfg, dev):
@@ -687,6 +745,306 @@ def context_small_cpu_vs_card(dev):
     return out["cpu"], out[str(dev)]
 
 
+def sass_summary(source):
+    """{kernel: {"instructions", "MUFU.EX2", "LDG", "STS", "LDS"}} of the
+    source's built library, counted in the SASS that cuobjdump prints (NOPs
+    left out); None where the toolkit has no cuobjdump."""
+    from contextgs_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(cuda_build._target(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    kernels, ops = {}, None
+    for line in sass.splitlines():
+        name = re.search(r"Function : (\S+)", line)
+        if name:
+            ops = kernels.setdefault(name.group(1), collections.Counter())
+            continue
+        op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                       line)
+        if ops is not None and op and op.group(1) != "NOP":
+            ops[op.group(1)] += 1
+    return {name: dict(instructions=sum(ops.values()), **{
+        k: sum(n for o, n in ops.items() if o.startswith(k))
+        for k in ("MUFU.EX2", "LDG", "STS", "LDS")})
+        for name, ops in kernels.items()}
+
+
+def check_k4_sass(k4, k1):
+    """K4's levels in SASS keep their stages' work under -O3: level 0 loads
+    the two bounds; from level 1 on the id, the nine row values and the
+    five staging stores of the row gather are there; the exp from level 2
+    on only; and the walk grows from level 2 to 4. (Static counts need not
+    grow from level 0 to 2: -O3 unrolls level 1's short batch loop.)"""
+    levels = [next(v for k, v in k4.items() if f"ILi{lv}E" in k)
+              for lv in K4_LEVELS]
+    k1 = list(k1.values())[0]
+    emit(phase="k4_sass", levels=levels, k1=k1, v4_counts_equal_k1=(
+        levels[4] == k1))
+    check(levels[0]["LDG"] >= 2 and levels[0]["STS"] == 0,
+          "K4 SASS: level 0 reads the bounds and stages nothing")
+    check(all(lv["LDG"] >= 12 and lv["STS"] >= 5 for lv in levels[1:]),
+          "K4 SASS: the row gather from level 1 on")
+    check(all((lv["MUFU.EX2"] > 0) == (i >= 2) for i, lv in enumerate(levels)),
+          "K4 SASS: exps from level 2 on only")
+    walk = [lv["instructions"] for lv in levels[2:]]
+    check(walk == sorted(set(walk)), "K4 SASS: the walk grows from 2 to 4")
+
+
+def compare_k4(level, rows, ids, bounds, width, height, t_eps, k1, big):
+    """K4 at `level` against its plain version on the same card inputs, and
+    against K1's outputs `k1`. v0 exact; the sinks of v1 and v2 within 1e-5
+    relative (0 where the plain one is 0); v3's sink (unscaled) and v4 as
+    K1 against its plain version: 2e-5 on small cases, on `big` ones max
+    2e-4 and mean 1e-6; v4 bit-equal to K1, v3's T and last_contrib too."""
+    from contextgs_tpu_torch.scripts import kvariants
+
+    got = kvariants.blend_variant(level, rows, ids, bounds, width, height,
+                                  t_eps)
+    want = kvariants.blend_variant_reference(level, rows, ids, bounds, width,
+                                             height, t_eps)
+    torch.cuda.synchronize()
+    diff = torch.cat([(got[0] - want[0]).abs().flatten(),
+                      (got[1] - want[1]).abs().flatten()])
+    res = dict(level=level, max_abs=float(diff.max()),
+               finite=bool(torch.isfinite(got[0]).all()
+                           and torch.isfinite(got[1]).all()),
+               last_contrib_mismatch=int((got[2] != want[2]).sum()))
+    if level <= 2:
+        rel = (got[0] - want[0]).abs() / want[0].abs().clamp_min(1e-38)
+        res.update(max_rel_sink=float(rel.max()),
+                   t_one=bool((got[1] == 1).all()),
+                   last_zero=bool((got[2] == 0).all()))
+        ok = (res["max_rel_sink"] <= (0.0 if level == 0 else 1e-5)
+              and res["t_one"] and res["last_zero"])
+    else:
+        scale = 1.0 / kvariants.SINK if level == 3 else 1.0
+        err = torch.cat([((got[0] - want[0]) * scale).abs().flatten(),
+                         (got[1] - want[1]).abs().flatten()])
+        res.update(max_abs_unscaled=float(err.max()),
+                   mean_abs_unscaled=float(err.mean()),
+                   t_equals_k1=bool(torch.equal(got[1], k1[1])),
+                   last_equals_k1=bool(torch.equal(got[2], k1[2])))
+        ok = (res["t_equals_k1"] and res["last_equals_k1"] and (
+            res["max_abs_unscaled"] <= 2e-4
+            and res["mean_abs_unscaled"] <= 1e-6 if big
+            else res["max_abs_unscaled"] <= 2e-5
+            and res["last_contrib_mismatch"] == 0))
+        if level == 4:
+            res["rgb_equals_k1"] = bool(torch.equal(got[0], k1[0]))
+            ok = ok and res["rgb_equals_k1"]
+    res["ok"] = bool(ok and res["finite"])
+    return res
+
+
+def check_k4(case, rows, ids, bounds, width, height, t_eps=1e-4, big=False):
+    """Every level of K4 against its plain version and K1 on one case; the
+    largest |error| of each level."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    k1 = tile_kernel.blend_forward(rows, ids, bounds, width, height, t_eps)
+    errs = []
+    for level in K4_LEVELS:
+        res = compare_k4(level, rows, ids, bounds, width, height, t_eps, k1,
+                         big)
+        emit(phase="k4_check", case=case, **res)
+        check(res["ok"], f"K4 level {level} on {case}")
+        errs.append(res["max_abs"])
+    return errs
+
+
+def k4_bounds(rows, ids, bounds, width, height, t_eps=1e-4):
+    """The roofline of each level of K4 on these inputs, counting only the
+    work that level does: level 0 reads the bounds and writes rgb, T and
+    last_contrib; level 1 also reads the listed ids and the rows of the
+    gaussians they name; level 2 adds the pairs of every listed instance
+    with an in-image pixel (no early exit: the pair counts at t_eps = 0);
+    levels 3 and 4 the pairs up to each pixel's exit (at t_eps)."""
+    from contextgs_tpu_torch.ops.rasterize import reference
+
+    tiles_x = (width + 15) // 16
+    first, end = int(bounds[0]), int(bounds[-1])
+    base = bounds.numel() * 4 + height * width * (3 + 1 + 1) * 4
+    rows_read = int(torch.unique(ids[first:end]).numel())
+    gather = (end - first) * 4 + rows_read * rows.shape[1] * 4
+    pairs = {lv: reference.blend_tiles_reference(
+        rows, ids, bounds, width, height, tiles_x,
+        t_eps=0.0 if lv == 2 else t_eps, count_pairs=True)[3]
+        for lv in (2, 4)}
+    pairs[3] = pairs[4]
+    out = [roofline(base, 0, 0), roofline(base + gather, 0, 0)]
+    for lv in (2, 3, 4):
+        ops = sum(n * pairs[lv][k] for k, n in OPS_K4[lv].items())
+        out.append(roofline(base + gather, ops, pairs[lv]["exp"]))
+    return out
+
+
+def k4_decompose(case, times, inputs, width, height, t_eps=1e-4):
+    """Each level's time by CUDA events over back-to-back calls through the
+    wrapper, as the lab times them (`times`, host launch gaps included), by
+    `card_ms` warm (`kernel_ms`: the same calls with the gaps hidden) and
+    cold (`cold_ms`: one call at a time after an L2 flush), the first two
+    with their increments over the level before; each level's bound; K1's
+    times beside v4's, on the same `inputs` (rows, ids, bounds)."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+    from contextgs_tpu_torch.scripts import kvariants
+
+    def level(lv):
+        return lambda: kvariants.blend_variant(lv, *inputs, width, height,
+                                               t_eps)
+
+    def k1_call():
+        return tile_kernel.blend_forward(*inputs, width, height, t_eps)
+
+    kernel_ms = [card_ms(level(lv)) for lv in K4_LEVELS]
+    cold = [card_ms(level(lv), 10, cold=True) for lv in K4_LEVELS]
+    k1 = [cuda_ms(k1_call, 20), card_ms(k1_call),
+          card_ms(k1_call, 10, cold=True)]
+    bounds = k4_bounds(*inputs, width, height, t_eps)
+    return dict(phase="k4_decompose", case=case, k1_ms=k1[0],
+                k1_kernel_ms=k1[1], k1_cold_ms=k1[2],
+                levels=[dict(level=lv, ms=times[lv], kernel_ms=kernel_ms[lv],
+                             cold_ms=cold[lv],
+                             increment_ms=times[lv] - (times[lv - 1] if lv
+                                                       else 0.0),
+                             kernel_increment_ms=kernel_ms[lv] - (
+                                 kernel_ms[lv - 1] if lv else 0.0),
+                             bound_ms=bounds[lv]["bound_ms"],
+                             bound_term=bounds[lv]["bound_by"])
+                        for lv in K4_LEVELS],
+                v4_minus_k1_kernel_ms=kernel_ms[4] - k1[1])
+
+
+def tile_lengths(bounds):
+    """The per-tile instance-list lengths of a view: least, median, p90,
+    p99, most, mean, and the empty tiles."""
+    lens = (bounds[1:] - bounds[:-1]).double()
+    q = torch.quantile(lens, torch.tensor([0.5, 0.9, 0.99], dtype=lens.dtype,
+                                          device=lens.device)).tolist()
+    return dict(tiles=lens.numel(), min=int(lens.min()), median=q[0],
+                p90=q[1], p99=q[2], max=int(lens.max()),
+                mean=float(lens.mean()), empty=int((lens == 0).sum()))
+
+
+def check_k56(dev):
+    """K5 and K6 against x.transpose(1, 2).contiguous() on the card, exact,
+    at the lab's [8394, 128, 16] and at slab counts that leave K6's last
+    block of 8 ragged. Returns the largest |error| of each kernel."""
+    from contextgs_tpu_torch.scripts import xpose_lab
+
+    worst = dict.fromkeys(xpose_lab.KERNELS, 0.0)
+    for nc in (xpose_lab.B // xpose_lab.C, 1, 7, 9, 8393):
+        x = torch.randn((nc, xpose_lab.C, xpose_lab.K), device=dev,
+                        generator=torch.Generator(dev).manual_seed(nc))
+        want = xpose_lab.transpose_slabs_reference(x)
+        for variant in xpose_lab.KERNELS:
+            got = xpose_lab.transpose_slabs(x, variant)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            equal = bool(torch.equal(got, want))
+            emit(phase="k56_check", variant=variant, nc=nc, equal=equal,
+                 max_abs=err)
+            check(equal, f"{xpose_lab.KERNELS[variant]} at nc={nc}")
+            worst[variant] = max(worst[variant], err)
+    return worst
+
+
+def kernel_labs(dev, k4_err, k56_err):
+    """The main paths of the two kernel labs, each with its launch counts
+    set to 0 just before and read just after: kvariants.run_all (K4's five
+    levels on the lab's three configurations), then, on the same inputs,
+    K1's time and each level's bound, the plain versions' times on the
+    first configuration, and the uneven-tiles ratio (8x450 over 1x3600);
+    xpose_lab.run_all (K5, K6, the library call and the lab's torch rows)
+    against the slab transpose's byte bound. Returns the kernels-line
+    entries of K4's levels, K5 and K6; `k4_err` and `k56_err` are the
+    checks' largest errors."""
+    from contextgs_tpu_torch.scripts import kvariants, xpose_lab
+
+    lab_w, lab_h = 16 * kvariants.TILES_X, 16 * kvariants.TILES_Y
+    kvariants.launches[:] = [0] * len(kvariants.LEVELS)
+    k4_table = kvariants.run_all()
+    torch.cuda.synchronize()
+    k4_launches = list(kvariants.launches)
+    emit(phase="kvariants_lab", table=k4_table, launches=k4_launches)
+    check(min(k4_launches) > 0, "every level of K4 launched by the lab")
+    k4_lab = {}
+    one, uneven = list(k4_table)[0], list(k4_table)[-1]   # 1x3600, 8x450
+    for config, times in k4_table.items():
+        cpt, active = map(int, config.split("x"))
+        lab = kvariants.lab_inputs(cpt, active, device=dev)
+        k4_lab[config] = k4_decompose(config, times, lab, lab_w, lab_h)
+        if config == one:
+            k4_lab[config]["plain_ms"] = [cuda_ms(
+                lambda: kvariants.blend_variant_reference(
+                    lv, *lab, lab_w, lab_h), 3) for lv in K4_LEVELS]
+        emit(**k4_lab[config])
+        del lab
+    ratio = {f"v{lv}": k4_table[uneven][lv] / k4_table[one][lv]
+             for lv in K4_LEVELS}
+    ratio["k1"] = k4_lab[uneven]["k1_ms"] / k4_lab[one]["k1_ms"]
+    ratio.update({f"v{lv}_kernel": k4_lab[uneven]["levels"][lv]["kernel_ms"]
+                  / k4_lab[one]["levels"][lv]["kernel_ms"] for lv in K4_LEVELS})
+    ratio["k1_kernel"] = (k4_lab[uneven]["k1_kernel_ms"]
+                          / k4_lab[one]["k1_kernel_ms"])
+    emit(phase="k4_uneven_tiles", configs=[uneven, one], ms_ratio=ratio)
+
+    xpose_lab.launches.update(dict.fromkeys(xpose_lab.KERNELS, 0))
+    xpose_table = xpose_lab.run_all()
+    torch.cuda.synchronize()
+    k56_launches = dict(xpose_lab.launches)
+    nc = xpose_lab.B // xpose_lab.C
+    slab_bytes = 2 * nc * xpose_lab.C * xpose_lab.K * 4
+    slab_bound_ms = slab_bytes / PEAK_HBM_BYTES * 1e3
+    slab_names = {v: next(n for n in xpose_table if xpose_lab.KERNELS[v] in n)
+                  for v in xpose_lab.KERNELS}
+    library_ms = xpose_table["T blocked [nc,C,16]->[nc,16,C]"]
+    x = torch.randn((nc, xpose_lab.C, xpose_lab.K), device=dev)
+    calls = {v: (lambda v=v: xpose_lab.transpose_slabs(x, v))
+             for v in xpose_lab.KERNELS}
+    calls["library"] = lambda: xpose_lab.transpose_slabs_reference(x)
+    kernel_ms = {v: card_ms(call) for v, call in calls.items()}
+    cold = {v: card_ms(call, 10, cold=True) for v, call in calls.items()}
+    del x
+    emit(phase="xpose_lab", table=xpose_table, launches=k56_launches,
+         kernel_ms=kernel_ms, cold_ms=cold,
+         bytes=slab_bytes, bound_ms=slab_bound_ms,
+         share_of_bound={v: slab_bound_ms / xpose_table[n]
+                         for v, n in slab_names.items()},
+         library_share_of_bound=slab_bound_ms / library_ms)
+    check(min(k56_launches.values()) > 0, "K5 and K6 launched by the lab")
+
+    entries = []
+    for lv, stage in enumerate(kvariants.LEVELS):
+        level = k4_lab[one]["levels"][lv]
+        entries.append(dict(
+            name=f"kvariant_{stage[:2]}", route="cuda",
+            source="contextgs_tpu_torch/scripts/csrc/kvariants.cu",
+            replaces="scripts/kvariants.py:36", launches=k4_launches[lv],
+            max_abs_err=k4_err[lv], ms=level["ms"],
+            plain_ms=k4_lab[one]["plain_ms"][lv], bound_ms=level["bound_ms"],
+            bound_by="bytes" if level["bound_term"] == "bytes"
+            else "operations", bound_term=level["bound_term"],
+            library_ms=None, kernel_ms=level["kernel_ms"],
+            cold_ms=level["cold_ms"], config=one, stage=stage))
+    for variant, line in (("smem", 105), ("vec", 125)):
+        entries.append(dict(
+            name=xpose_lab.KERNELS[variant], route="cuda",
+            source="contextgs_tpu_torch/scripts/csrc/xpose.cu",
+            replaces=f"scripts/xpose_lab.py:{line}",
+            launches=k56_launches[variant], max_abs_err=k56_err[variant],
+            ms=xpose_table[slab_names[variant]], plain_ms=library_ms,
+            bound_ms=slab_bound_ms, bound_by="bytes", bound_term="bytes",
+            library_ms=library_ms, kernel_ms=kernel_ms[variant],
+            library_kernel_ms=kernel_ms["library"], cold_ms=cold[variant],
+            library_cold_ms=cold["library"],
+            shape=[nc, xpose_lab.C, xpose_lab.K]))
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -701,6 +1059,7 @@ def main() -> int:
     from contextgs_tpu_torch.models import state as tst
     from contextgs_tpu_torch.ops import cuda_build, scan
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
+    from contextgs_tpu_torch.scripts import kvariants, xpose_lab
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -711,7 +1070,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE,))
+    cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
+                                            xpose_lab.SOURCE))
     build_s = time.perf_counter() - t0
 
     def ptxas(stem):
@@ -722,7 +1082,13 @@ def main() -> int:
          count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=build_s, k1_ptxas=ptxas("blend_forward"),
-         k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"))
+         k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"),
+         k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"))
+    k4_sass = sass_summary(kvariants.SOURCE)
+    if k4_sass is None:
+        emit(phase="k4_sass", cuobjdump=None)
+    else:
+        check_k4_sass(k4_sass, sass_summary(tile_kernel.SOURCE))
 
     # ---- 2. K1 against its plain version ----
     for name, (rows, ids, bounds, w, h) in golden_cases(dev):
@@ -739,6 +1105,13 @@ def main() -> int:
     scan.launches = 0
     k3_err = check_k3(dev)
     k3_check_launches = scan.launches
+    for name, case in golden_cases(dev):
+        check_k4(name, *case)
+    tiles_x, tiles_y = kvariants.TILES_X, kvariants.TILES_Y
+    k4_err = check_k4("lab_1x3600", *kvariants.lab_inputs(
+        1, tiles_x * tiles_y, device=dev), 16 * tiles_x, 16 * tiles_y,
+        big=True)
+    k56_err = check_k56(dev)
 
     cfg = TrainConfig(model=ModelConfig())
     mcfg = cfg.model
@@ -842,6 +1215,13 @@ def main() -> int:
          rows_read=rows_read, bytes=n_bytes, fp32_ops=n_ops, **k1_bound,
          k1_ms=k1_ms, plain_ms=plain_ms,
          share_of_bound=k1_bound["bound_ms"] / k1_ms)
+    # K4 on the same inputs: check, then the stage split of K1's time
+    check_k4("serve_100k_1280x720", rows, ids, bounds, W, H, t_eps, big=True)
+    emit(**k4_decompose(
+        "serve_100k_1280x720", [kvariants.run_variant(lv, rows, ids, bounds,
+                                                      W, H)
+                                for lv in K4_LEVELS],
+        (rows, ids, bounds), W, H, t_eps), tile_lengths=tile_lengths(bounds))
     # the last view's per-gaussian tile counts in depth order: the input of
     # the first prefix sum of ops/rasterize/sorting.py, K3's shape (a)
     proj = sort_kept["args"][0]
@@ -1088,7 +1468,10 @@ def main() -> int:
              share_of_bound=res["bound_ms"] / res["k3_ms"])
     k3_main = k3_times["tile_counts"]
 
-    # ---- 7. kernels line, card line, result ----
+    # ---- 7. the kernel labs: K4's stages of K1, K5 and K6 ----
+    lab_kernels = kernel_labs(dev, k4_err, k56_err)
+
+    # ---- 8. kernels line, card line, result ----
     def contract_label(bound):        # the kernels line says bytes or ops
         return "bytes" if bound["bound_by"] == "bytes" else "operations"
 
@@ -1124,6 +1507,7 @@ def main() -> int:
              device_ms=k3_main["k3_device_ms"],
              library_device_ms=k3_main["library_device_ms"],
              shape=k3_main["shape"], dtype=k3_main["dtype"])]
+    kernels += lab_kernels
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(smi)

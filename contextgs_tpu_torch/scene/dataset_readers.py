@@ -3,7 +3,7 @@
 
 Only the container for now: the COLMAP and Blender loaders, which read
 images with Pillow, come with the drivers slice (ROADMAP.md queue 1,
-slice 5). A caller builds a `SceneInfo` in memory from `scene.cameras.Camera`
+slice 6). A caller builds a `SceneInfo` in memory from `scene.cameras.Camera`
 objects whose `image` holds the target.
 """
 

@@ -11,7 +11,7 @@ checkpoints and resume.
 The reference's static-shape machinery — the instance budget, `vis_cap` and
 their watermark adaptation — has no counterpart: the port's shapes are
 dynamic. `save_iterations` snapshots with a `model_path` (the ply writer,
-slice 5) raise `NotImplementedError`.
+slice 6) raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -150,7 +150,7 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
         raise NotImplementedError(
             f"save_iterations {snapshots} with a model_path write a "
             "point_cloud.ply snapshot, which comes with the drivers slice "
-            "(ROADMAP.md queue 1, slice 5); use checkpoint_iterations")
+            "(ROADMAP.md queue 1, slice 6); use checkpoint_iterations")
     log.info("init: %d anchors (capacity %d), voxel_size=%.6f",
              st.n_alive(model), model.buffers.alive.shape[0], ts.voxel_size)
 

@@ -139,8 +139,8 @@ def test_port_imports_no_jax():
     files = sorted((REPO / "contextgs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    assert {"entropy.py", "context.py", "levels.py", "scan.py"} <= {
-        path.name for path in files}
+    assert {"entropy.py", "context.py", "levels.py", "scan.py",
+            "kvariants.py", "xpose_lab.py"} <= {path.name for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1 (tile-blend forward), K2 (its backward) and K3
-(the lane prefix sum) against their plain versions.
+"""The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
+(the lane prefix sum), K4 (the forward's five stages) and K5/K6 (the slab
+transposes) against their plain versions.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -18,6 +19,8 @@ from contextgs_tpu_torch.ops import scan as tscan
 from contextgs_tpu_torch.ops.rasterize import reference as tref
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
 from contextgs_tpu_torch.scene.cameras import make_camera
+from contextgs_tpu_torch.scripts import kvariants as tkv
+from contextgs_tpu_torch.scripts import xpose_lab as txl
 
 torch.set_num_threads(1)
 
@@ -386,3 +389,69 @@ def test_lane_cumsum_kernel_matches_plain_version(case):
         want = tscan.lane_cumsum_reference(
             xt if dtype == np.int32 else xt.view(torch.int32), exclusive)
         np.testing.assert_array_equal(sign.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "chunk_boundary", "lab"])
+@pytest.mark.parametrize("level", range(5))
+def test_kvariant_kernel_matches_plain_version(level, case):
+    """K4 at each level against its plain version on the card: v0 exact;
+    the sinks of v1 and v2 1e-5 relative; v3's sink and v4 2e-5 absolute
+    (v3's unscaled). v4 equals K1 bit for bit, and v3's T and last_contrib
+    equal K1's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    dev = torch.device("cuda")
+    if case == "random":
+        w, h = W, H
+        rows, ids, bounds = (torch.from_numpy(x).to(dev) for x in
+                             _random_rows(np.random.default_rng(7), TILES_X,
+                                          2, 300))
+    elif case == "chunk_boundary":
+        w, h = 16, 16
+        rows, ids, bounds = (torch.from_numpy(x).to(dev)
+                             for x in _chunk_boundary_rows())
+    else:
+        w, h = 64, 32
+        rows, ids, bounds = tkv.lab_inputs([1, 2, 8, 0, 3, 1, 1, 2], 8,
+                                           tiles_x=4, tiles_y=2, budget=2048,
+                                           device=dev)
+    before = list(tkv.launches)
+    got = tkv.blend_variant(level, rows, ids, bounds, w, h)
+    torch.cuda.synchronize()
+    assert tkv.launches[level] == before[level] + 1
+    want = tkv.blend_variant_reference(level, rows, ids, bounds, w, h)
+    k1 = tile_kernel.blend_forward(rows, ids, bounds, w, h)
+    got_np, want_np = (tuple(x.cpu().numpy() for x in o) for o in (got, want))
+    if level <= 2:
+        np.testing.assert_allclose(got_np[0], want_np[0], rtol=1e-5, atol=0)
+        assert (got_np[1] == 1).all() and (got_np[2] == 0).all()
+    else:
+        scale = 1 / tkv.SINK if level == 3 else 1.0
+        np.testing.assert_allclose(got_np[0] * scale, want_np[0] * scale,
+                                   atol=2e-5)
+        np.testing.assert_allclose(got_np[1], want_np[1], atol=2e-5)
+        np.testing.assert_array_equal(got_np[2], want_np[2])
+        assert torch.equal(got[1], k1[1]) and torch.equal(got[2], k1[2])
+    if level == 4:
+        assert torch.equal(got[0], k1[0])
+
+
+TRANSPOSE_NC = [1, 7, 8, 9, 8394]      # 8394: the lab's [B/128, 128, 16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", TRANSPOSE_NC)
+@pytest.mark.parametrize("variant", sorted(txl.KERNELS))
+def test_transpose_slab_kernel_matches_plain_version(variant, nc):
+    """K5 and K6 against x.transpose(1, 2).contiguous() on the card, exact;
+    nc not a multiple of K6's 8 slabs a block is masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    x = torch.from_numpy(np.random.default_rng(nc).normal(
+        size=(nc, txl.C, 16)).astype(np.float32)).cuda()
+    before = dict(txl.launches)
+    got = txl.transpose_slabs(x, variant)
+    torch.cuda.synchronize()
+    assert txl.launches[variant] == before[variant] + 1
+    assert torch.equal(got, txl.transpose_slabs_reference(x))

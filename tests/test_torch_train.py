@@ -371,7 +371,7 @@ def test_train_reaching_context_or_a_snapshot_raises(tmp_path):
     assert len(ts.level_scales) == cfg.model.level_num - 1
     cfg = tcfg.TrainConfig(model=cfg.model, model_path=str(tmp_path),
                            save_iterations=(4,))
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="slice 6"):
         tloop.train(cfg, _tiny_scene(), device="cpu")
 
 

@@ -9,7 +9,12 @@ Phases, one JSON object per line; any failed check exits non-zero:
 1. device  — the card's name and power limit; K1, K2, K3, K4
    (scripts/csrc/kvariants.cu) and K5/K6 (scripts/csrc/xpose.cu) built from
    the sources in the checkout (nvcc, sm_90a, one process each, together),
-   with ptxas's register and shared-memory lines. k4_sass: K4's levels in
+   with ptxas's register and shared-memory lines; with them K2's knock-outs
+   (written from its source into build/k2_knockouts) and, where copies of
+   the previous design's K3 and K2 sources lie in build/prev (scan_prev.cu,
+   blend_backward_prev.cu, taken from git history: not in the repository,
+   so a checkout skips them), those, to time old against new in this
+   call. k4_sass: K4's levels in
    the SASS cuobjdump prints (skipped where the toolkit has none), so that
    the sinks are seen to keep every stage's work: the bounds' loads at
    level 0, the row gather's loads and staging stores from level 1 on, the
@@ -20,16 +25,22 @@ Phases, one JSON object per line; any failed check exits non-zero:
    the plain version's log-space prefix and the kernel's sequential product,
    and each flip moves a pixel by at most α·T ≤ 1e-4).
    k2_check — K2 against its plain version (autograd through the plain
-   blend) on the golden cases and the 20k view, with random cotangents and a
-   nonzero dL/dT_final: every component of d_rows inside the envelope of the
+   blend) on the golden cases, three cases that probe its footprint cull
+   (edges of the alpha >= 1/255 region and of its box on a warp's row
+   boundary, opacities just above 1/255, conics that are not positive
+   definite) and the 20k view, with random cotangents and a nonzero
+   dL/dT_final: every component of d_rows inside the envelope of the
    plain gradients at T_EPS·(1±2e-4), widened by 1.5e-3 of that component's
    largest |grad| (the JAX package's Pallas-versus-oracle tolerance, the size
    of rounding between a sequential product and a log-space prefix).
    k3_check — K3 (the lane prefix sum) against its plain version on the
    card: int32 and uint32 exact, the two's complement wrap of [2, 100000],
-   the sizes 1, 127, 129 and 4097 inclusive and exclusive, a 1-D exclusive
-   row and one row of 1M (many blocks); float32 within
-   scan.float_tolerance(N) · Σ|x| of a float64 prefix.
+   rows of 10001 (not a multiple of 4: the kernel's scalar edge), 1-D views
+   4 bytes off a 16-byte boundary, the sizes 1, 127, 129, 4097 and 8193
+   inclusive and exclusive, a 1-D exclusive row and one row of 1M (many
+   tiles); float32 within scan.float_tolerance(N) · Σ|x| of a float64
+   prefix, the worst share of that bound printed; K3's scratch left
+   zeroed.
    k4_check — every level of K4 against its plain version and K1 on the
    golden cases and the kernel lab's 1x3600 table: v0 exact, the sinks of
    v1 and v2 1e-5 relative, v3's sink (unscaled) and v4 with K1's
@@ -47,7 +58,9 @@ Phases, one JSON object per line; any failed check exits non-zero:
    the orbit with CUDA events around the renderer's module-level calls (the
    stage split), K1 checked, timed and bounded on the kept inputs,
    k4_check and k4_decompose on them (each level of K4 timed beside K1,
-   with its increment and bound, and the per-tile list lengths), the small
+   with its increment and bound, and the per-tile list lengths); K2 checked
+   on the same view with seeded cotangents (a denser list than training's:
+   its time comes after training), the small
    CPU-vs-card check, and render(phase="plain") from init_scene_model over a
    seeded 100k-point cloud. K3's count is set to 0 with K1's and read
    after: K3 is off the main path (the rasterizer's prefix sums are
@@ -73,14 +86,21 @@ Phases, one JSON object per line; any failed check exits non-zero:
    small scene from one state on the CPU and on the card (losses 1e-3
    relative: atomics and reduction order differ); context_small_cpu_vs_card:
    5 context steps likewise, both sides given the same draws (loss and
-   bit_per_param 1e-3 relative); and k2_bound: K2 timed and bounded on the
-   last step's inputs.
+   bit_per_param 1e-3 relative); k1_bound on the last step's inputs (K1
+   on the training path); k2_bound: K2 timed and bounded on the last step's
+   inputs and on the serve view's, each beside the previous K2 in turns
+   where its copy is present, with the shuffles and global atomics of both
+   designs counted from the pair counts; and k2_knockouts: K2 beside its
+   knock-outs on the serve view (no reduce-scatter; no cull).
 6. k3_bound — K3, its plain version and torch.cumsum (the library call)
-   timed by CUDA events over back-to-back calls, and K3 and torch.cumsum
-   by the profiler's kernel time, on the serve view's per-gaussian tile
-   counts ([1, n] int32, the input of ops/rasterize/sorting.py's first
-   cumsum) and on [16, 2^20] float32 N(0,1) (the lane-major form of the
-   reference's packed gradient prefix), each against its byte bound.
+   timed by CUDA events over back-to-back calls (K3 and torch.cumsum in
+   turns, and by the host's clock per call), and K3 and torch.cumsum by the
+   profiler's kernel time (with the device operations of a K3 call), on
+   the serve view's per-gaussian tile counts ([1, n] int32, the input of
+   ops/rasterize/sorting.py's first cumsum) and on [16, 2^20] float32
+   N(0,1) (the lane-major form of the reference's packed gradient prefix),
+   each against its byte bound, and beside the previous K3 in turns where its
+   copy is present.
 7. the kernel labs, each lab's counts set to 0 just before and read just
    after: kvariants_lab (kvariants.run_all, K4's five levels on the lab's
    1x3600, 2x3600 and 8x450 tables), then k4_decompose per table (K1 timed
@@ -128,6 +148,41 @@ OPS = dict(evaluated=11, exp=2, tested=2, blended=7)
 # the colour gradients and the T update (20), the gradients of opacity, mean
 # and conic (19), and the 9 additions that sum the pixels' values (9).
 OPS_K2 = dict(bwd_evaluated=11, bwd_exp=2, bwd_blended=48)
+# the work the result needs: only the pairs that reach alpha >= 1/255 (K1:
+# T·(1-α) tested; K2: blended) need their power, exp and the rest; a pair
+# rejected at alpha < 1/255 needs none, and the kernels' culls skip it
+NEED_K1 = dict(tested=11 + 2 + 2, blended=7)
+NEED_K2 = dict(bwd_blended=11 + 2 + 48)
+# K2's warp-level costs per (warp, instance) pair with a blended pixel:
+# shuffles of the previous design's nine butterflies and of the
+# reduce-scatter; global
+# atomics per (warp, instance) then, per (tile, instance) now (at most)
+K2_SHUFFLES = dict(prev=9 * 5, new=5 + 3 + 2 + 1 + 1)
+# the previous design's K2 and K3 sources, copied here to time old against
+# new in one
+# call; not in the repository, so the phase is skipped where they are absent
+PREV_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "prev")
+PREV_SOURCES = dict(k3="scan_prev.cu", k2="blend_backward_prev.cu")
+# K2's knock-outs, written from its source by text edits into build/ and
+# timed beside it on the serve view: what each part of K2 costs. Each edit
+# is (text of csrc/blend_backward.cu, replacement); a variant whose text is
+# not found (the source changed) is skipped, not failed.
+K2_HALVES = "".join(f"          halve<{s}, {d}>(g, wl & {d});\n" for s, d in (
+    (9, 16), (5, 8), (3, 4), (2, 2), (1, 1)))
+K2_KNOCKOUTS = {
+    # the leader lanes store their own nine values' sum: no shuffles (the
+    # gradient is wrong; the work before the reduction is all kept)
+    "no_reduce_scatter": [(K2_HALVES, "          g[0] = g[0] + g[1] + g[2] + "
+                           "g[3] + g[4] + g[5] + g[6] + g[7] + g[8];\n")],
+    # every warp walks every instance and takes every exp: no cull (the
+    # gradient is the same)
+    "no_cull": [("        if (!((s_warps[j] >> warp) & 1u)) continue;     "
+                 "// warp-uniform\n", ""),
+                ("power <= 0.0f && !(power < s_ntau[j])", "power <= 0.0f")],
+}
+K2_KNOCKOUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "k2_knockouts")
 # float32 operations of K4's levels 2 and 3 (scripts/csrc/kvariants.cu) on a
 # pair, keyed as OPS: level 2 walks every listed pair without an early exit
 # and adds each alpha >= 1/255 to its sink (1); level 3 adds T·(1-α) (2) and,
@@ -358,6 +413,54 @@ def golden_cases(dev):
                      torch.from_numpy(b).to(dev), w, h)
 
 
+def cull_cases(dev, width=48, height=32, n=120):
+    """Small blend cases that probe K2's footprint cull, in random (tile,
+    depth) lists: `edge` puts each splat's alpha >= 1/255 edge, or its
+    box's edge, on a warp's row boundary or a tile's column boundary;
+    `faint` has opacities just above 1/255, some means on pixel centres;
+    `not_pd` has conics with det <= 0 or a <= 0 (no box)."""
+    for seed, case in enumerate(("edge", "faint", "not_pd")):
+        rng = np.random.default_rng(60 + seed)
+        rows = np.zeros((n, 9), np.float32)
+        rows[:, 6:9] = rng.uniform(0, 1, (n, 3))
+        a, c = rng.uniform(0.01, 0.6, n), rng.uniform(0.01, 0.6, n)
+        b = rng.uniform(-0.95, 0.95, n) * np.sqrt(a * c)
+        op = rng.uniform(0.05, 1.0, n)
+        mx, my = rng.uniform(0, width, n), rng.uniform(0, height, n)
+        if case == "edge":
+            tau = np.log(255 * op)
+            det = a * c - b * b
+            reach_y = np.sqrt(2 * tau * a / det)
+            reach_x = np.sqrt(2 * tau * c / det)
+            boundary = 2 * rng.integers(1, height // 2 - 1, n) - 0.5
+            half = n // 2
+            my[:half] = (boundary[:half] - reach_y[:half]
+                         * rng.choice([-1, 1], half))
+            my[half:] = np.round(boundary[half:] + 0.5) - reach_y[half:] - 1
+            mx[::3] = (16 * rng.integers(1, width // 16, mx[::3].size) - 0.5
+                       - reach_x[::3])
+        elif case == "faint":
+            op = (1 / 255) * (1 + rng.choice([1e-6, 1e-5, 1e-3, 1e-1], n))
+            mx[::2], my[::2] = np.round(mx[::2]), np.round(my[::2])
+        else:       # small enough that exp(power) stays finite
+            a, c = rng.uniform(0.001, 0.015, n), rng.uniform(0.001, 0.015, n)
+            b = (rng.choice([-1, 1], n) * np.sqrt(a * c)
+                 * rng.uniform(1.0, 1.5, n))
+            a[::4] = -a[::4]
+            c[1::4] = -c[1::4]
+        rows[:, 0], rows[:, 1], rows[:, 5] = mx, my, op
+        rows[:, 2:5] = np.stack([a, b, c], 1)
+        n_tiles = -(-width // 16) * -(-height // 16)
+        tiles = np.sort(rng.integers(0, n_tiles, 4 * n))
+        ids = rng.integers(0, n, tiles.size).astype(np.int32)
+        bounds = np.searchsorted(tiles, np.arange(n_tiles + 1)).astype(
+            np.int32)
+        yield f"cull_{case}", (torch.from_numpy(rows).to(dev),
+                               torch.from_numpy(ids).to(dev),
+                               torch.from_numpy(bounds).to(dev), width,
+                               height)
+
+
 def roofline(n_bytes, n_ops, n_exp):
     """The least time for the work, and which term sets it: the bytes at
     the HBM rate, the float32 operations at the CUDA cores' rate, the exps
@@ -368,6 +471,163 @@ def roofline(n_bytes, n_ops, n_exp):
     term = max(terms, key=terms.get)
     return dict(bytes_ms=terms["bytes"], fp32_ops_ms=terms["fp32"],
                 exp_ms=terms["exp"], bound_ms=terms[term], bound_by=term)
+
+
+def bounds_of(n_bytes, pairs, need, walked, need_exp, walked_exp):
+    """The roofline of the work these inputs need (`need`: operations per
+    pair by key, `need_exp` the key whose pairs take an exp), and beside it,
+    as bound_walked_ms, that of every pair the kernel walks (`walked`,
+    `walked_exp`)."""
+    out = roofline(n_bytes, sum(n * pairs[k] for k, n in need.items()),
+                   pairs[need_exp])
+    walk = roofline(n_bytes, sum(n * pairs[k] for k, n in walked.items()),
+                    pairs[walked_exp])
+    out.update(fp32_ops=sum(n * pairs[k] for k, n in need.items()),
+               bound_walked_ms=walk["bound_ms"],
+               bound_walked_by=walk["bound_by"])
+    return out
+
+
+def k1_bound_of(rows, ids, bounds, width, height, pairs):
+    """K1's bound on these inputs: bytes, the rows of gaussians with tile
+    instances, ids and bounds read once, rgb, final T and last_contrib
+    written once; operations and exps of the pairs that reach alpha >=
+    1/255 (walked: of every pair the loop reaches)."""
+    rows_read = int(torch.unique(ids).numel())
+    n_bytes = (rows_read * rows.shape[1] * 4 + ids.numel() * 4
+               + bounds.numel() * 4 + height * width * (3 + 1 + 1) * 4)
+    return dict(rows_read=rows_read, bytes=n_bytes, **bounds_of(
+        n_bytes, pairs, NEED_K1, OPS, "tested", "exp"))
+
+
+def k2_bound_of(rows, ids, bounds, width, height, pairs):
+    """K2's bound on these inputs: bytes, the rows of gaussians with tile
+    instances, ids and bounds, K1's three outputs and the two cotangents
+    read once, d_rows written once; operations and exps of the blended
+    pairs (walked: of every pair up to last_contrib). With the shuffles and
+    global atomics of the previous design (nine butterflies and nine
+    atomics per (warp, instance) with a blended pixel) and of this one (a
+    12-shuffle reduce-scatter; at most nine atomics per (tile,
+    instance))."""
+    rows_read = int(torch.unique(ids).numel())
+    n_bytes = (rows_read * rows.shape[1] * 4 + ids.numel() * 4
+               + bounds.numel() * 4 + height * width * (3 + 1 + 1 + 3 + 1) * 4
+               + rows.numel() * 4)
+    warps = pairs["bwd_warp_blended"]
+    return dict(rows_read=rows_read, bytes=n_bytes, **bounds_of(
+        n_bytes, pairs, NEED_K2, OPS_K2, "bwd_blended", "bwd_exp"),
+        shuffles_prev=K2_SHUFFLES["prev"] * warps,
+        shuffles=K2_SHUFFLES["new"] * warps,
+        atomics_prev=9 * warps, atomics_at_most=9 * pairs["bwd_tile_blended"],
+        shuffles_per_touched_warp=K2_SHUFFLES["new"] * warps
+        / max(pairs["bwd_warp_touched"], 1))
+
+
+def k2_knockout_sources():
+    """{name: path} of K2's knock-outs written from its source, those whose
+    edits apply."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    text = tile_kernel.BACKWARD_SOURCE.read_text()
+    os.makedirs(K2_KNOCKOUT_DIR, exist_ok=True)
+    out = {}
+    for name, edits in K2_KNOCKOUTS.items():
+        variant = text
+        for old, new in edits:
+            if old not in variant:
+                break
+            variant = variant.replace(old, new)
+        else:
+            path = os.path.join(K2_KNOCKOUT_DIR, f"blend_backward_{name}.cu")
+            with open(path, "w") as f:
+                f.write(variant)
+            out[name] = path
+    return out
+
+
+def k2_knockouts(sources, args):
+    """K2 and its knock-outs on the same inputs by `card_ms`, in turns (K2,
+    each knock-out, each again in reverse, K2), and each one's largest
+    difference from K2 in units of the largest |grad|."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    calls = {"k2": lambda: tile_kernel.blend_backward(*args)}
+    calls.update({name: (lambda c=k2_from(path): c(*args))
+                  for name, path in sources.items()})
+    order = list(calls) + list(calls)[::-1]
+    times = {name: [] for name in calls}
+    for name in order:
+        times[name].append(card_ms(calls[name]))
+    want = calls["k2"]()
+    return {name: dict(ms=sum(t) / len(t), turns=t, max_diff_of_max_grad=float(
+        (calls[name]() - want).abs().max() / want.abs().max()))
+        for name, t in times.items()}
+
+
+def prev_kernels():
+    """The previous K3 and K2 sources under build/prev, or None where a copy is
+    absent (a checkout holds only the repository's files)."""
+    srcs = {k: os.path.join(PREV_DIR, f) for k, f in PREV_SOURCES.items()}
+    return srcs if all(map(os.path.exists, srcs.values())) else None
+
+
+def prev_k3(source):
+    """The previous K3 behind a replica of its wrapper: the library and the
+    function looked up on every call, the device guard, the output and the
+    block-sum scratch allocated, three launches."""
+    import ctypes
+
+    from contextgs_tpu_torch.ops import cuda_build, scan
+
+    def call(x):
+        rows = x.view(1, -1) if x.dim() == 1 else x
+        r, n = rows.shape
+        out = torch.empty_like(x)
+        partial = torch.empty((r, -(-n // 4096)), dtype=x.dtype,
+                              device=x.device)
+        fn = getattr(cuda_build.load_library(source), "lane_cumsum_f32"
+                     if x.dtype == torch.float32 else "lane_cumsum_i32")
+        if fn.argtypes is None:
+            fn.argtypes = scan.ARGTYPES
+            fn.restype = ctypes.c_int
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(rows.data_ptr(), out.data_ptr(), partial.data_ptr(), r,
+                     n, 0, stream)
+        check(err == 0, f"previous K3 launch: CUDA error {err}")
+        return out
+    return call
+
+
+def k2_from(source):
+    """The K2 of `source` (the previous design, or a knock-out) behind the
+    launch of K2's wrapper: the same arguments, the zeroed d_rows, the cached
+    function."""
+    from contextgs_tpu_torch.ops import cuda_build
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    def call(rows, ids, bounds, rgb, ft, last, d_rgb, d_ft, width, height,
+             t_eps=None):
+        tiles_x = (width + 15) // 16
+        d_rows = torch.zeros_like(rows)
+        fn = cuda_build.c_function(source, "blend_backward",
+                                   tile_kernel.BACKWARD_ARGTYPES)
+        err = cuda_build.launch(
+            fn, rows.device, rows.data_ptr(), ids.data_ptr(),
+            bounds.data_ptr(), rgb.data_ptr(), ft.data_ptr(),
+            last.data_ptr(), d_rgb.data_ptr(), d_ft.data_ptr(), width,
+            height, tiles_x, bounds.numel() - 1, d_rows.data_ptr())
+        check(err == 0, f"K2 of {source}: CUDA error {err}")
+        return d_rows
+    return call
+
+
+def in_turns(prev, new, time):
+    """`time` of two calls in turns, `prev` (an old kernel, or the library
+    call) then `new`: prev, new, new, prev; prev_ms and ms are the means."""
+    t = [time(prev), time(new), time(new), time(prev)]
+    return dict(prev_ms=(t[0] + t[3]) / 2, ms=(t[1] + t[2]) / 2,
+                prev_ms_turns=[t[0], t[3]], ms_turns=[t[1], t[2]])
 
 
 def cotangents(width, height, seed, dev):
@@ -579,7 +839,15 @@ def k3_cases():
         return rng.integers(lo, hi, shape).astype(np.int32)
 
     yield "i32_wrap_2x100000", ints((2, 100_000), -(2 ** 28), 2 ** 28), False
-    for n in (1, 127, 129, 4097):
+    # rows whose length is not a multiple of 4: from the second row on no
+    # tile is 16-byte aligned, so they take the kernel's scalar edge
+    yield "i32_4x10001", ints((4, 10_001), -(2 ** 28), 2 ** 28), False
+    yield ("f32_4x10001_exclusive", rng.normal(size=(4, 10_001)).astype(
+        np.float32), True)
+    yield "i32_misaligned_1d_20000", ints(20_000, -(2 ** 28), 2 ** 28), False
+    yield ("f32_misaligned_1d_20000", rng.normal(size=20_000).astype(
+        np.float32), False)
+    for n in (1, 127, 129, 4097, 8193):
         x = ints((8, n), 0, 100)
         yield f"i32_8x{n}", x, False
         yield f"i32_8x{n}_exclusive", x, True
@@ -596,13 +864,16 @@ def k3_cases():
 def check_k3(dev):
     """K3 against its plain version on the card, case by case: int32 and
     uint32 exact, and equal to numpy's int32 prefix; float32 within
-    float_tolerance(N) · Σ_{j≤i}|x_j| of a float64 prefix. Returns the
-    largest float32 error."""
+    float_tolerance(N) · Σ_{j≤i}|x_j| of a float64 prefix, with the worst
+    share of that bound printed. Returns the largest float32 error."""
     from contextgs_tpu_torch.ops import scan
 
-    worst = 0.0
+    worst, worst_share = 0.0, 0.0
     for name, x, excl in k3_cases():
         xt = torch.from_numpy(x).to(dev)
+        if "misaligned" in name:         # a view 4 bytes off 16
+            xt = torch.cat([xt[:1], xt])[1:]
+            check(xt.data_ptr() % 16 == 4, "K3 misaligned view")
         got = scan.lane_cumsum(xt, exclusive=excl)
         torch.cuda.synchronize()
         res = dict(case=name, shape=list(x.shape), exclusive=excl)
@@ -619,6 +890,7 @@ def check_k3(dev):
                            (err / np.maximum(allowed, 1e-300)).max()))
             ok = bool((err <= allowed).all())
             worst = max(worst, res["max_abs"])
+            worst_share = max(worst_share, res["worst_share_of_bound"])
         else:
             as_i32 = (lambda t: t.view(torch.int32)) if x.dtype == np.uint32 \
                 else (lambda t: t)
@@ -633,12 +905,19 @@ def check_k3(dev):
             ok = mismatch == 0 and res["host_mismatch"] == 0
         emit(phase="k3_check", ok=ok, **res)
         check(ok, f"K3 {name}")
+    torch.cuda.synchronize()
+    zeroed = all(not bool(buf.any()) for buf in scan._scratch.values())
+    emit(phase="k3_check", case="all", float_max_abs=worst,
+         float_worst_share_of_bound=worst_share, scratch_left_zeroed=zeroed,
+         scratch_words={str(k): v.numel() for k, v in scan._scratch.items()})
+    check(zeroed, "K3 leaves its scratch zeroed")
     return worst
 
 
-def device_ms(fn, reps=20):
-    """Kernel time per call of `fn` by torch.profiler: the device's own
-    time, without the gaps in which it waits for the host to launch."""
+def device_profile(fn, reps=20):
+    """Kernel time per call of `fn` by torch.profiler (the device's own
+    time, without the gaps in which it waits for the host to launch), and
+    the device operations a call runs, by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -648,17 +927,38 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in ops) / 1e3 / reps,
+            {e.key[:60]: e.count / reps for e in ops})
 
 
-def time_k3(x, reps=50):
+def device_ms(fn, reps=20):
+    return device_profile(fn, reps)[0]
+
+
+def host_us(fn, calls=1000):
+    """Host time per call of `fn` over back-to-back calls, a synchronize
+    after: what the host spends to enqueue a call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
+
+
+def time_k3(x, prev=None, reps=50):
     """K3, its plain version and torch.cumsum on x, by CUDA events over
-    back-to-back calls (what a caller sees, host launch gaps included) and
-    by the profiler's kernel time, with the byte bound: each element read
-    once and written once."""
+    back-to-back calls (what a caller sees, host launch gaps included; K3
+    and torch.cumsum in turns: library, K3, K3, library), by the host's
+    clock per call (in turns too) and by the profiler's kernel time (with
+    the device operations of a K3 call), with the byte bound: each element
+    read once and written once. With `prev` (the previous K3), old and new in
+    turns by events and by `card_ms` (host gaps hidden)."""
     from contextgs_tpu_torch.ops import scan
 
     n_bytes = 2 * x.numel() * x.element_size()
@@ -666,14 +966,31 @@ def time_k3(x, reps=50):
     def library():
         return torch.cumsum(x, -1, dtype=x.dtype)
 
-    return dict(
+    def k3():
+        return scan.lane_cumsum(x)
+
+    events = in_turns(library, k3, lambda f: cuda_ms(f, reps))
+    host = in_turns(library, k3, host_us)
+    k3_device_ms, k3_device_ops = device_profile(k3)
+    res = dict(
         shape=list(x.shape), dtype=str(x.dtype).replace("torch.", ""),
-        k3_ms=cuda_ms(lambda: scan.lane_cumsum(x), reps),
+        k3_ms=events["ms"], library_ms=events["prev_ms"],
+        events_turns=dict(k3=events["ms_turns"],
+                          library=events["prev_ms_turns"]),
+        k3_host_us=host["ms"], library_host_us=host["prev_ms"],
         plain_ms=cuda_ms(lambda: scan.lane_cumsum_reference(x), reps),
-        library_ms=cuda_ms(library, reps),
-        k3_device_ms=device_ms(lambda: scan.lane_cumsum(x)),
+        k3_device_ms=k3_device_ms, k3_device_ops=k3_device_ops,
         library_device_ms=device_ms(library),
         bytes=n_bytes, bound_ms=n_bytes / PEAK_HBM_BYTES * 1e3)
+    if prev is not None:
+        old = prev_k3(prev)
+        events = in_turns(lambda: old(x), k3, lambda f: cuda_ms(f, reps))
+        kernel = in_turns(lambda: old(x), k3, card_ms)
+        res.update(k3_prev_ms=events["prev_ms"], k3_new_ms=events["ms"],
+                   k3_turns_ms=events, k3_prev_kernel_ms=kernel["prev_ms"],
+                   k3_kernel_ms=kernel["ms"], k3_kernel_turns_ms=kernel,
+                   prev_max_abs_diff=float((old(x) - k3()).abs().max()))
+    return res
 
 
 def context_small_cpu_vs_card(dev):
@@ -1069,9 +1386,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+    prev = prev_kernels()
+    knockouts = k2_knockout_sources()
     t0 = time.perf_counter()
     cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
-                                            xpose_lab.SOURCE))
+                                            xpose_lab.SOURCE)
+                     + (tuple(prev.values()) if prev else ())
+                     + tuple(knockouts.values()))
     build_s = time.perf_counter() - t0
 
     def ptxas(stem):
@@ -1083,7 +1404,9 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda,
          build_s=build_s, k1_ptxas=ptxas("blend_forward"),
          k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"),
-         k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"))
+         k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"),
+         prev_sources=prev, k2_prev_ptxas=ptxas("blend_backward_prev"),
+         k2_knockouts=sorted(knockouts))
     k4_sass = sass_summary(kvariants.SOURCE)
     if k4_sass is None:
         emit(phase="k4_sass", cuobjdump=None)
@@ -1099,7 +1422,8 @@ def main() -> int:
     got_g = tile_kernel.blend_forward(*next(iter(
         c for n, c in golden_cases(dev) if n == "chunk_boundary")))[0][1]
     check(float(got_g.abs().max()) == 0.0, "chunk-boundary green must be 0")
-    for i, (name, (rows, ids, bounds, w, h)) in enumerate(golden_cases(dev)):
+    for i, (name, (rows, ids, bounds, w, h)) in enumerate(
+            list(golden_cases(dev)) + list(cull_cases(dev))):
         check_k2(name, compare_k2(rows, ids, bounds, w, h,
                                   *cotangents(w, h, 30 + i, dev)))
     scan.launches = 0
@@ -1204,17 +1528,20 @@ def main() -> int:
         rows, ids, bounds, W, H, W // 16, t_eps=t_eps), 3)
     pairs = reference.blend_tiles_reference(rows, ids, bounds, W, H, W // 16,
                                             t_eps=t_eps, count_pairs=True)[3]
-    # bytes: the rows of gaussians that have tile instances, ids and bounds
-    # read once, rgb, final T and last_contrib written once
-    rows_read = int(torch.unique(ids).numel())
-    n_bytes = (rows_read * rows.shape[1] * 4 + ids.numel() * 4
-               + bounds.numel() * 4 + H * W * (3 + 1 + 1) * 4)
-    n_ops = sum(OPS[k] * pairs[k] for k in OPS)
-    k1_bound = roofline(n_bytes, n_ops, pairs["exp"])
-    emit(phase="k1_bound", pairs=pairs, pairs_listed=256 * int(ids.numel()),
-         rows_read=rows_read, bytes=n_bytes, fp32_ops=n_ops, **k1_bound,
-         k1_ms=k1_ms, plain_ms=plain_ms,
-         share_of_bound=k1_bound["bound_ms"] / k1_ms)
+    k1_bound = k1_bound_of(rows, ids, bounds, W, H, pairs)
+    emit(phase="k1_bound", case="serve_100k_1280x720", pairs=pairs,
+         pairs_listed=256 * int(ids.numel()), **k1_bound, k1_ms=k1_ms,
+         plain_ms=plain_ms, share_of_bound=k1_bound["bound_ms"] / k1_ms,
+         share_of_bound_walked=k1_bound["bound_walked_ms"] / k1_ms)
+    # K2 on the serve view's K1 inputs with seeded cotangents: a denser
+    # list than training's; checked here, timed against the previous K2
+    # after training
+    serve_k2 = (rows, ids, bounds,
+                *tile_kernel.blend_forward(rows, ids, bounds, W, H, t_eps),
+                *cotangents(W, H, 50, dev), W, H, t_eps)
+    k2_serve_res = compare_k2(rows, ids, bounds, W, H, *serve_k2[6:8], t_eps)
+    check_k2("serve_100k_1280x720", k2_serve_res)
+    k2_serve_bound = k2_bound_of(rows, ids, bounds, W, H, pairs)
     # K4 on the same inputs: check, then the stage split of K1's time
     check_k4("serve_100k_1280x720", rows, ids, bounds, W, H, t_eps, big=True)
     emit(**k4_decompose(
@@ -1440,32 +1767,60 @@ def main() -> int:
     pairs = reference.blend_tiles_reference(rows, ids, bounds, W, H, W // 16,
                                             t_eps=kept[10],
                                             count_pairs=True)[3]
-    # bytes: the rows of gaussians with tile instances, ids and bounds,
-    # K1's three outputs and the two cotangents read once, d_rows written
-    rows_read = int(torch.unique(ids).numel())
-    n_bytes = (rows_read * rows.shape[1] * 4 + ids.numel() * 4
-               + bounds.numel() * 4 + H * W * (3 + 1 + 1 + 3 + 1) * 4
-               + rows.numel() * 4)
-    n_ops = sum(OPS_K2[k] * pairs[k] for k in OPS_K2)
-    k2_bound = roofline(n_bytes, n_ops, pairs["bwd_exp"])
-    emit(phase="k2_bound", pairs=pairs, rows_read=rows_read,
-         n_gauss=int(rows.shape[0]), n_instances=int(ids.numel()),
-         bytes=n_bytes, fp32_ops=n_ops, **k2_bound,
-         atomics=9 * pairs["bwd_warp_blended"], k2_ms=k2_ms,
-         plain_ms=k2_plain_ms, share_of_bound=k2_bound["bound_ms"] / k2_ms)
-    del kept, rows, ids, bounds
+    k2_bound = k2_bound_of(rows, ids, bounds, W, H, pairs)
+    # K1 on the same inputs: the training path's forward of its last step
+    k1_train_ms = cuda_ms(lambda: tile_kernel.blend_forward(
+        rows, ids, bounds, W, H, kept[10]), 20)
+    k1_train_bound = k1_bound_of(rows, ids, bounds, W, H, pairs)
+    emit(phase="k1_bound", case="train_last_step_1280x720",
+         **k1_train_bound, k1_ms=k1_train_ms,
+         share_of_bound=k1_train_bound["bound_ms"] / k1_train_ms)
+    # K2 against the previous one, in turns on the same inputs: the last
+    # step's and the serve view's
+    k2_serve_ms = cuda_ms(lambda: tile_kernel.blend_backward(*serve_k2), 20)
+    k2_turns = {}
+    if prev:
+        old = k2_from(prev["k2"])
+        for case, args in (("train_last_step_1280x720", kept),
+                           ("serve_100k_1280x720", serve_k2)):
+            k2_turns[case] = in_turns(
+                lambda a=args: old(*a),
+                lambda a=args: tile_kernel.blend_backward(*a),
+                lambda f: cuda_ms(f, 20))
+            got, was = tile_kernel.blend_backward(*args), old(*args)
+            k2_turns[case]["max_abs_diff_of_max_grad"] = float(
+                (got - was).abs().max() / was.abs().max())
+    for case, ms, bound, res, bpairs in (
+            ("train_last_step_1280x720", k2_ms, k2_bound, k2_res, pairs),
+            ("serve_100k_1280x720", k2_serve_ms, k2_serve_bound,
+             k2_serve_res, None)):
+        turns = k2_turns.get(case)
+        emit(phase="k2_bound", case=case, pairs=bpairs, **bound, k2_ms=ms,
+             plain_ms=k2_plain_ms if bpairs else None,
+             share_of_bound=bound["bound_ms"] / ms,
+             share_of_bound_walked=bound["bound_walked_ms"] / ms,
+             max_abs_err=res["max_abs"],
+             k2_prev_ms=turns["prev_ms"] if turns else None,
+             k2_new_ms=turns["ms"] if turns else None, turns=turns,
+             faster_than_prev=turns["ms"] < turns["prev_ms"] if turns
+             else None)
+    emit(phase="k2_knockouts", case="serve_100k_1280x720",
+         **k2_knockouts(knockouts, serve_k2))
+    del kept, rows, ids, bounds, serve_k2
 
     # ---- 6. K3 timed against torch.cumsum and its byte bound ----
     scan.launches = 0
+    k3_prev = prev["k3"] if prev else None
     k3_times = dict(
-        tile_counts=time_k3(tile_counts),
+        tile_counts=time_k3(tile_counts, k3_prev),
         packed_grad=time_k3(torch.randn(
             (16, 1 << 20), generator=torch.Generator(dev).manual_seed(13),
-            device=dev)))
+            device=dev), k3_prev))
     k3_bound_launches = scan.launches
     for name, res in k3_times.items():
         emit(phase="k3_bound", case=name, **res,
-             share_of_bound=res["bound_ms"] / res["k3_ms"])
+             share_of_bound=res["bound_ms"] / res["k3_ms"],
+             no_slower_than_library=res["k3_ms"] <= res["library_ms"])
     k3_main = k3_times["tile_counts"]
 
     # ---- 7. the kernel labs: K4's stages of K1, K5 and K6 ----
@@ -1484,7 +1839,11 @@ def main() -> int:
              max_abs_err=k1_res["max_abs"], ms=k1_ms, plain_ms=plain_ms,
              bound_ms=k1_bound["bound_ms"],
              bound_by=contract_label(k1_bound),
-             bound_term=k1_bound["bound_by"], library_ms=None),
+             bound_term=k1_bound["bound_by"], library_ms=None,
+             bound_walked_ms=k1_bound["bound_walked_ms"],
+             train_ms=k1_train_ms, train_bound_ms=k1_train_bound["bound_ms"],
+             train_bound_by=contract_label(k1_train_bound),
+             train_bound_walked_ms=k1_train_bound["bound_walked_ms"]),
         dict(name="blend_backward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_backward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:548",
@@ -1492,7 +1851,13 @@ def main() -> int:
              max_abs_err=k2_res["max_abs"], ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=k2_bound["bound_ms"],
              bound_by=contract_label(k2_bound),
-             bound_term=k2_bound["bound_by"], library_ms=None),
+             bound_term=k2_bound["bound_by"], library_ms=None,
+             bound_walked_ms=k2_bound["bound_walked_ms"],
+             k2_prev_ms=k2_turns.get("train_last_step_1280x720", {}).get(
+                 "prev_ms"), serve_ms=k2_serve_ms,
+             serve_bound_ms=k2_serve_bound["bound_ms"],
+             serve_k2_prev_ms=k2_turns.get("serve_100k_1280x720", {}).get(
+                 "prev_ms")),
         dict(name="lane_cumsum", route="cuda",
              source="contextgs_tpu_torch/ops/csrc/scan.cu",
              replaces="contextgs_tpu/ops/scan.py:61",
@@ -1506,7 +1871,11 @@ def main() -> int:
              library_ms=k3_main["library_ms"],
              device_ms=k3_main["k3_device_ms"],
              library_device_ms=k3_main["library_device_ms"],
-             shape=k3_main["shape"], dtype=k3_main["dtype"])]
+             shape=k3_main["shape"], dtype=k3_main["dtype"],
+             k3_prev_ms=k3_main.get("k3_prev_ms"),
+             packed_grad_ms=k3_times["packed_grad"]["k3_ms"],
+             packed_grad_k3_prev_ms=k3_times["packed_grad"].get(
+                 "k3_prev_ms"))]
     kernels += lab_kernels
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

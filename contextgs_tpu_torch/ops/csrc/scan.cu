@@ -6,49 +6,104 @@
 // float32. It computes what the plain version ops/scan.py::
 // lane_cumsum_reference computes (torch.cumsum with the input's dtype).
 //
-// Design: reduce, then scan, in three launches on the current stream, so that
-// one long row spreads over many SMs (R = 1, N = 1M gives 256 blocks):
-//   1. block_sums: one 256-thread block per (row, 4096-element block) sums
-//      its block (16 strided loads a thread, a warp __shfl_down_sync sum, the
-//      8 warp totals) into partial[row, block];
-//   2. block_carries: one block per row scans that row's block sums in
-//      place into exclusive carries, 256 at a time with a running carry;
-//   3. scan_blocks: every (row, block) loads its 4096 elements coalesced
-//      into padded shared memory, each thread scans its 16 consecutive
-//      elements, a warp scan (__shfl_up_sync) and one scan of the warp totals
-//      give each thread its offset, the block's carry is added, and the
-//      result is stored coalesced.
+// Design: one single-pass decoupled look-back scan, one launch on the
+// current stream, reading each input once. The R rows are cut into tiles
+// of 8192 elements; a 256-thread block scans one tile (32 elements a
+// thread: a larger tile takes fewer look-backs a byte):
+//   1. it takes its tile from an atomic ticket, not from blockIdx, so a
+//      block only ever waits on tiles whose blocks started before it, and
+//      the look-back always makes progress;
+//   2. it loads the tile into padded shared memory, 16 bytes a thread where
+//      the row's alignment allows (a scalar edge for a ragged last tile or a
+//      misaligned row), and each thread scans its 32 consecutive elements; a
+//      warp scan (__shfl_up_sync) and one scan of the warp totals give each
+//      thread its offset and the tile its aggregate;
+//   3. it publishes the aggregate in its 64-bit status word (flag in the
+//      high half, the value's 32 bits in the low half, one release store),
+//      and warp 0 looks back over the preceding tiles of the row, 32 at a
+//      time, each lane spinning on one word with an acquire load: it sums
+//      aggregates until it meets an inclusive prefix, adds that, and
+//      publishes the tile's own inclusive prefix. A row's first tile
+//      publishes its inclusive prefix at once. A flag is never seen
+//      without its value: both are one word.
+//   4. each block then counts itself done; the last one, when every block
+//      has finished its look-back, zeroes the status words and the two
+//      counters, so the scratch is left as it was found: all zero.
+// The scratch is the caller's, zeroed once when it is allocated and kept
+// for later calls on the same stream (ops/scan.py keeps one per stream);
+// calls on one stream run one after another, so each finds it zeroed and
+// no memset is needed before a launch.
 // The TPU kernel instead walks the blocks in order with a carry across its
-// sequential grid; blocks on the GPU run in no order, hence the second pass.
+// sequential grid; blocks on the GPU run in no order, hence the look-back.
 // int32 is added as unsigned int: signed overflow is undefined in C++, and
 // the reference's exact-i32 contract includes two's complement wrap-around.
 //
-// Float32 adds run in another order than torch.cumsum's. An element of an
-// earlier block goes through at most 16 + 5 + 8 additions in its block sum,
-// 5 + 5 + 1 + 1 + ceil(N / 2^20) in the carries and 1 + 16 in the block scan;
-// one of the same block through at most 16 + 5 + 5 + 1 + 16. So with
-// D = 64 + ceil(N / 2^20) every output is within D * 2^-24 *
+// Float32 adds run in another order than torch.cumsum's, and the look-back
+// chain depends on timing. Count the additions an element x_j passes on its
+// way to output i (additions of an exact 0 round nothing and are not
+// counted). Same tile: 32 in its thread's run, 5 + 5 in the warp and
+// warp-total scans, 1 for the warp's offset, 1 for the tile's carry, 32 in
+// the output's run: 76. Earlier tile: 32 + 5 + 5 = 42 into its tile's
+// aggregate; at most 5 in the look-back warp's sum of the window that takes
+// it; then one hop of the chain of inclusive prefixes per tile at most (a
+// hop over g tiles adds a lane-masked window sum of depth ceil(log2 g), one
+// running add per extra window of 32 and the inclusive add: at most g);
+// then 1 + 32 in the output's tile. So with T = ceil(N / 8192) tiles a row,
+// D = 80 + T bounds them all, and every output is within D * 2^-24 *
 // sum_{j<=i} |x_j| of the exact prefix (to first order).
 //
 // Bound: bytes. The function reads each input once and writes each output
-// once (8 bytes an element for 32-bit types) at 3.35 TB/s; this design reads
-// the input twice. Left for later: a single-pass decoupled look-back scan
-// (one read), vectorized 16-byte loads, TMA staging of the blocks.
+// once (8 bytes an element for 32-bit types) at 3.35 TB/s, and so does this
+// design; the status words add 8 bytes per 8192 elements. Left for later:
+// TMA staging of the tiles, several tiles a block for short rows.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 16;                        // elements a thread
-constexpr int kBlock = kThreads * kItems;         // 4096, the TPU LANE_BLOCK
+constexpr int kItems = 32;                        // elements a thread
+constexpr int kBlock = kThreads * kItems;         // 8192 a tile
+constexpr int kVecs = kBlock / 4 / kThreads;      // 16-byte loads a thread
 constexpr int kPadded = kBlock + kBlock / 32;     // one pad word per 32
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kAggregate = 1ull << 32;   // status flags
+constexpr unsigned long long kInclusive = 2ull << 32;
 
 // Shared-memory index with one pad word every 32, so that thread t reading
-// element t * 16 + i meets no bank conflict.
+// element t * 32 + i, and thread t storing elements 4t .. 4t + 3, meet no
+// bank conflict.
 __device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+template <typename T> __device__ __forceinline__ T from_bits(unsigned u);
+template <>
+__device__ __forceinline__ unsigned from_bits<unsigned>(unsigned u) {
+  return u;
+}
+template <>
+__device__ __forceinline__ float from_bits<float>(unsigned u) {
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ unsigned to_bits(unsigned v) { return v; }
+__device__ __forceinline__ unsigned to_bits(float v) {
+  return __float_as_uint(v);
+}
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_inclusive_scan(T v, int lane) {
@@ -88,63 +143,77 @@ __device__ __forceinline__ T block_exclusive_scan(T v, T* warp_off,
   return out;
 }
 
+// Warp 0 of tile `blk` (> 0) of a row: the sum of the row's tiles before it,
+// from their status words `st[0 .. blk)`.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-block_sums(const T* __restrict__ x, T* __restrict__ partial, long long n,
-           int n_blocks) {
-  __shared__ T warp_tot[kWarps];
-  const T* xr = x + static_cast<long long>(blockIdx.y) * n;
-  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
-  T s = T(0);
+__device__ __forceinline__ T look_back(const unsigned long long* st, int blk,
+                                       int lane) {
+  T exclusive = T(0);
+  for (int last = blk - 1;; last -= 32) {
+    const int t = last - lane;                    // lane 0 the nearest
+    unsigned long long s = kInclusive;            // before the row: 0
+    if (t >= 0) {
+      do {
+        s = load_acquire(st + t);
+      } while ((s >> 32) == 0);
+    }
+    const unsigned inclusive = __ballot_sync(kFull, (s >> 32) == 2);
+    // lanes past the nearest inclusive prefix add nothing
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    T v = lane <= stop ? from_bits<T>(static_cast<unsigned>(s)) : T(0);
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long j = base + i * kThreads + threadIdx.x;
-    if (j < n) s += xr[j];
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(kFull, s, d);
-  if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = s;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T t = T(0);
-    for (int w = 0; w < kWarps; ++w) t += warp_tot[w];
-    partial[static_cast<long long>(blockIdx.y) * n_blocks + blockIdx.x] = t;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(kFull, v, d);
+    exclusive += __shfl_sync(kFull, v, 0);
+    if (inclusive) return exclusive;
   }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-block_carries(T* __restrict__ partial, int n_blocks) {
-  __shared__ T warp_off[kWarps + 1];
-  T* p = partial + static_cast<long long>(blockIdx.x) * n_blocks;
-  T carry = T(0);
-  for (int base = 0; base < n_blocks; base += kThreads) {
-    const int j = base + threadIdx.x;
-    const T v = j < n_blocks ? p[j] : T(0);
-    T total;
-    const T exc = block_exclusive_scan(v, warp_off, &total);
-    if (j < n_blocks) p[j] = carry + exc;
-    carry += total;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scan_blocks(const T* __restrict__ x, T* __restrict__ out,
-            const T* __restrict__ carries, long long n, int n_blocks,
-            int exclusive) {
+scan_tiles(const T* __restrict__ x, T* __restrict__ out,
+           unsigned long long* __restrict__ status,
+           unsigned* __restrict__ counters, long long n, int n_blocks,
+           int exclusive) {
   __shared__ T s[kPadded];
   __shared__ T warp_off[kWarps + 1];
-  const long long row = blockIdx.y;
+  __shared__ int s_tile;
+  __shared__ T s_carry;
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {                          // the ticket
+    s_tile = static_cast<int>(atomicAdd(counters, 1u));
+  }
+  __syncthreads();
+  const int tile = s_tile;
+  const long long row = tile / n_blocks;
+  const int blk = tile - static_cast<int>(row) * n_blocks;
   const T* xr = x + row * n;
   T* outr = out + row * n;
-  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
+  unsigned long long* st = status + row * n_blocks;
+  const long long base = static_cast<long long>(blk) * kBlock;
+  const bool vec = base + kBlock <= n &&
+                   ((reinterpret_cast<uintptr_t>(xr + base) |
+                     reinterpret_cast<uintptr_t>(outr + base)) & 15) == 0;
 
+  if (vec) {                                       // coalesced, 16 bytes
+    const uint4* xv = reinterpret_cast<const uint4*>(xr + base);
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {               // coalesced, striped
-    const int k = i * kThreads + threadIdx.x;
-    const long long j = base + k;
-    s[pad(k)] = j < n ? xr[j] : T(0);
+    for (int i = 0; i < kVecs; ++i) {
+      const int k = i * kThreads + threadIdx.x;
+      const uint4 v = __ldg(xv + k);
+      T* d = s + pad(4 * k);
+      d[0] = from_bits<T>(v.x);
+      d[1] = from_bits<T>(v.y);
+      d[2] = from_bits<T>(v.z);
+      d[3] = from_bits<T>(v.w);
+    }
+  } else {                                         // the scalar edge
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int k = i * kThreads + threadIdx.x;
+      const long long j = base + k;
+      s[pad(k)] = j < n ? xr[j] : T(0);
+    }
   }
   __syncthreads();
 
@@ -158,7 +227,23 @@ scan_blocks(const T* __restrict__ x, T* __restrict__ out,
   }
   T total;
   const T offset = block_exclusive_scan(sum, warp_off, &total);
-  T run = carries[row * n_blocks + blockIdx.x] + offset;
+
+  if (threadIdx.x < 32) {
+    T carry = T(0);
+    if (blk == 0) {
+      if (lane == 0) store_release(st, kInclusive | to_bits(total));
+    } else {
+      if (lane == 0) store_release(st + blk, kAggregate | to_bits(total));
+      carry = look_back<T>(st, blk, lane);
+      if (lane == 0) {
+        store_release(st + blk, kInclusive | to_bits(carry + total));
+      }
+    }
+    if (lane == 0) s_carry = carry;
+  }
+  __syncthreads();
+
+  T run = s_carry + offset;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     if (exclusive) {
@@ -171,45 +256,65 @@ scan_blocks(const T* __restrict__ x, T* __restrict__ out,
   }
   __syncthreads();
 
+  if (vec) {
+    uint4* ov = reinterpret_cast<uint4*>(outr + base);
 #pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int k = i * kThreads + threadIdx.x;
-    const long long j = base + k;
-    if (j < n) outr[j] = s[pad(k)];
+    for (int i = 0; i < kVecs; ++i) {
+      const int k = i * kThreads + threadIdx.x;
+      const T* d = s + pad(4 * k);
+      ov[k] = make_uint4(to_bits(d[0]), to_bits(d[1]), to_bits(d[2]),
+                         to_bits(d[3]));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int k = i * kThreads + threadIdx.x;
+      const long long j = base + k;
+      if (j < n) outr[j] = s[pad(k)];
+    }
+  }
+
+  // the last block done leaves the scratch zeroed for the next call
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(counters + 1, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (s_last) {
+    for (unsigned t = threadIdx.x; t < gridDim.x; t += kThreads) {
+      status[t] = 0;
+    }
+    if (threadIdx.x == 0) counters[0] = counters[1] = 0;
   }
 }
 
 template <typename T>
-int run(const void* x, void* out, void* partial, int rows, long long n,
+int run(const void* x, void* out, void* scratch, int rows, long long n,
         int exclusive, void* stream) {
   const int n_blocks = static_cast<int>((n + kBlock - 1) / kBlock);
-  const dim3 grid(n_blocks, rows);
+  const long long n_tiles = static_cast<long long>(rows) * n_blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* xt = static_cast<const T*>(x);
-  T* pt = static_cast<T*>(partial);
-  block_sums<T><<<grid, kThreads, 0, s>>>(xt, pt, n, n_blocks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_carries<T><<<rows, kThreads, 0, s>>>(pt, n_blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_blocks<T><<<grid, kThreads, 0, s>>>(xt, static_cast<T*>(out), pt, n,
-                                           n_blocks, exclusive);
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  scan_tiles<T><<<static_cast<unsigned>(n_tiles), kThreads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), words + 1,
+      reinterpret_cast<unsigned*>(words), n, n_blocks, exclusive);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x, out: [rows, n] row-major; partial: [rows, ceil(n / 4096)] scratch of the
-// same type. Returns the CUDA error of the launches (0 on success).
-extern "C" int lane_cumsum_i32(const void* x, void* out, void* partial,
+// x, out: [rows, n] row-major; scratch: at least rows * ceil(n / 8192) + 1
+// 64-bit words, all zero (the ticket and the done count, then the tiles'
+// status words), left all zero. Returns the CUDA error of the launch (0 on
+// success).
+extern "C" int lane_cumsum_i32(const void* x, void* out, void* scratch,
                                int rows, long long n, int exclusive,
                                void* stream) {
-  return run<unsigned int>(x, out, partial, rows, n, exclusive, stream);
+  return run<unsigned int>(x, out, scratch, rows, n, exclusive, stream);
 }
 
-extern "C" int lane_cumsum_f32(const void* x, void* out, void* partial,
+extern "C" int lane_cumsum_f32(const void* x, void* out, void* scratch,
                                int rows, long long n, int exclusive,
                                void* stream) {
-  return run<float>(x, out, partial, rows, n, exclusive, stream);
+  return run<float>(x, out, scratch, rows, n, exclusive, stream);
 }

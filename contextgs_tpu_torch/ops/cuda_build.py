@@ -5,6 +5,10 @@ Each source compiles on first use into `build/torch_kernels/` at the root of
 the checkout, under a name that carries a hash of the source and the flags,
 so an edited source builds anew. Nothing builds when a module is imported:
 a machine without `nvcc` can import every module and run the plain versions.
+A wrapper looks its C function up once per process (`c_function` keeps it)
+and launches it through `launch`, which enters the tensor's device only
+where it is not the current one: the host cost of a call is a dict lookup,
+the stream handle and the ctypes call.
 """
 
 from __future__ import annotations
@@ -18,12 +22,15 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libraries: dict = {}
+_functions: dict = {}     # (source, name) → configured ctypes function
 # source stem → {"seconds": build wall time, "ptxas": compiler report}
 build_log: dict = {}
 
@@ -85,9 +92,31 @@ def load_library(source: Path) -> ctypes.CDLL:
 
 def c_function(source: Path, name: str, argtypes: list):
     """The C function `name` of `source`'s library, returning an int (the
-    CUDA error of its launches), with `argtypes` set."""
-    fn = getattr(load_library(source), name)
-    if fn.argtypes is None:
+    CUDA error of its launches), with `argtypes` set; looked up once per
+    process and kept, so that a launch takes no lock and no `getattr`."""
+    fn = _functions.get((source, name))
+    if fn is None:
+        fn = getattr(load_library(source), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _functions[(source, name)] = fn
     return fn
+
+
+def raw_stream(index: int) -> int:
+    """The handle of device `index`'s current stream, as an int, by the call
+    Triton's launcher makes: it builds no `torch.cuda.Stream` object, which
+    costs the host a few µs a call."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(fn, device: torch.device, *args) -> int:
+    """fn(*args, stream) with the raw handle of `device`'s current stream,
+    `device` made current for the call only where it is not already;
+    returns fn's CUDA error."""
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        return fn(*args, raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, raw_stream(index))

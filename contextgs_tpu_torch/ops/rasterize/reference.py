@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from contextgs_tpu_torch.ops.rasterize.common import (T_EPS, alpha_from_power,
+from contextgs_tpu_torch.ops.rasterize.common import (T_EPS, alpha_footprint,
+                                                      alpha_from_power,
                                                       gaussian_power)
 from contextgs_tpu_torch.ops.rasterize.projection import ProjectedGaussians
 from contextgs_tpu_torch.ops.rasterize.sorting import TileInstances
@@ -28,7 +29,8 @@ from contextgs_tpu_torch.ops.rasterize.sorting import TileInstances
 MAX_ELEMS = 1 << 26    # padded (instance, pixel) pairs per tile group
 WARP = 32              # pixels of a tile that one warp of K1/K2 walks
 PAIR_KEYS = ("evaluated", "exp", "tested", "blended", "bwd_evaluated",
-             "bwd_exp", "bwd_blended", "bwd_warp_blended")
+             "bwd_exp", "bwd_blended", "bwd_warp_blended", "bwd_warp_touched",
+             "bwd_tile_blended")
 
 
 def _tile_groups(lens: list, pix: int, max_elems: int):
@@ -104,7 +106,31 @@ def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
         pairs["bwd_blended"] += int(bwd_blended.sum())
         pairs["bwd_warp_blended"] += int(bwd_blended.reshape(
             t1 - t0, L, pix // WARP, WARP).any(-1).sum())
+        pairs["bwd_tile_blended"] += int(bwd_blended.any(-1).sum())
+        pairs["bwd_warp_touched"] += _warp_touched(
+            r.detach(), valid, last * inside, px, py, tile_size)
     return rgb, final_t, last
+
+
+def _warp_touched(r, valid, last, px, py, tile_size) -> int:
+    """The (warp, instance) pairs whose `alpha_footprint` box meets the
+    warp's pixels (WARP of them: whole rows of the tile), at list positions
+    before the largest last_contrib of the warp's pixels: those K2 does not
+    cull. r [nt, L, 9] rows, valid [nt, L], last [nt, pix] (0 outside the
+    image), px, py [nt, pix]."""
+    nt, n_warps = last.shape[0], last.shape[1] // WARP
+    rx, ry, _ = alpha_footprint(r[..., 2:5], r[..., 5])          # [nt, L]
+    x0 = px[:, :1].to(r.dtype)                                   # [nt, 1]
+    x1 = x0 + (tile_size - 1)
+    y0 = py[:, ::WARP].to(r.dtype)[:, None, :]                   # [nt, 1, w]
+    y1 = y0 + (WARP // tile_size - 1)
+    mx, my = r[..., 0], r[..., 1]
+    meets_x = ~((mx + rx < x0) | (mx - rx > x1)) & valid         # [nt, L]
+    meets = (meets_x[..., None] & ~((my + ry)[..., None] < y0)
+             & ~((my - ry)[..., None] > y1))                     # [nt, L, w]
+    pos = torch.arange(r.shape[1], device=r.device)
+    warp_last = last.reshape(nt, n_warps, WARP).amax(-1)         # [nt, w]
+    return int((meets & (pos[None, :, None] < warp_last[:, None, :])).sum())
 
 
 def _tiles_x(width: int, tile_size: int) -> int:
@@ -147,9 +173,13 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
     needs: `evaluated` (power computed), `exp` (power ≤ 0, so the exp is
     taken), `tested` (alpha ≥ 1/255, so T·(1-α) is tested) and `blended`
     (included in the pixel); and those the backward walks, list positions up
-    to `last_contrib`: `bwd_evaluated`, `bwd_exp`, `bwd_blended`, and
+    to `last_contrib`: `bwd_evaluated`, `bwd_exp`, `bwd_blended`,
     `bwd_warp_blended`, the (warp of 32 pixels, instance) pairs with at least
-    one pixel blended, each of which costs K2 nine atomics."""
+    one pixel blended, each of which costs K2 one warp reduction,
+    `bwd_tile_blended`, the (tile, instance) pairs with one, each of which
+    costs K2 up to nine global atomics, and `bwd_warp_touched`, the (warp,
+    instance) pairs before the warp's largest last_contrib that K2's
+    footprint cull keeps."""
     dev = rows.device
     n_tiles = tile_bounds.numel() - 1
     pix = tile_size * tile_size

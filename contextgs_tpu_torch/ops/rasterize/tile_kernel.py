@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from contextgs_tpu_torch.ops.cuda_build import c_function
+from contextgs_tpu_torch.ops.cuda_build import c_function, launch
 from contextgs_tpu_torch.ops.rasterize.common import T_EPS
 from contextgs_tpu_torch.ops.rasterize.reference import (
     blend_tiles_backward_reference, blend_tiles_reference)
@@ -29,6 +29,10 @@ BACKWARD_SOURCE = SOURCE.with_name("blend_backward.cu")
 SOURCES = (SOURCE, BACKWARD_SOURCE)
 TILE = 16          # the kernels' tile side: one 256-thread block per tile
 ROW = 9            # mean xy, conic abc, opacity, rgb
+FORWARD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                    + [ctypes.c_float] + [ctypes.c_void_p] * 4)
+BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                     + [ctypes.c_void_p] * 2)
 
 launches = 0
 backward_launches = 0
@@ -90,14 +94,10 @@ def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     last = torch.empty((height, width), dtype=torch.int32, device=rows.device)
     if n_tiles == 0:
         return rgb, final_t, last
-    fn = c_function(SOURCE, "blend_forward",
-                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 4)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(rows.data_ptr(), gauss_ids.data_ptr(), tile_bounds.data_ptr(),
-                 width, height, tiles_x, n_tiles, t_eps, rgb.data_ptr(),
-                 final_t.data_ptr(), last.data_ptr(), stream)
+    fn = c_function(SOURCE, "blend_forward", FORWARD_ARGTYPES)
+    err = launch(fn, rows.device, rows.data_ptr(), gauss_ids.data_ptr(),
+                 tile_bounds.data_ptr(), width, height, tiles_x, n_tiles,
+                 t_eps, rgb.data_ptr(), final_t.data_ptr(), last.data_ptr())
     if err != 0:
         raise RuntimeError(f"blend_forward: kernel launch failed with CUDA "
                            f"error {err}")
@@ -133,15 +133,12 @@ def blend_backward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     d_rows = torch.zeros_like(rows)
     if n_tiles == 0:
         return d_rows
-    fn = c_function(BACKWARD_SOURCE, "blend_backward",
-                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(rows.data_ptr(), gauss_ids.data_ptr(), tile_bounds.data_ptr(),
-                 rgb.data_ptr(), final_t.data_ptr(), last_contrib.data_ptr(),
-                 d_rgb.data_ptr(), d_final_t.data_ptr(), width, height,
-                 tiles_x, n_tiles, d_rows.data_ptr(), stream)
+    fn = c_function(BACKWARD_SOURCE, "blend_backward", BACKWARD_ARGTYPES)
+    err = launch(fn, rows.device, rows.data_ptr(), gauss_ids.data_ptr(),
+                 tile_bounds.data_ptr(), rgb.data_ptr(), final_t.data_ptr(),
+                 last_contrib.data_ptr(), d_rgb.data_ptr(),
+                 d_final_t.data_ptr(), width, height, tiles_x, n_tiles,
+                 d_rows.data_ptr())
     if err != 0:
         raise RuntimeError(f"blend_backward: kernel launch failed with CUDA "
                            f"error {err}")

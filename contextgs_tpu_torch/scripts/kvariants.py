@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from contextgs_tpu_torch.device import resolve_device
-from contextgs_tpu_torch.ops.cuda_build import c_function
+from contextgs_tpu_torch.ops.cuda_build import c_function, launch
 from contextgs_tpu_torch.ops.rasterize.common import (T_EPS, alpha_from_power,
                                                       gaussian_power)
 from contextgs_tpu_torch.ops.rasterize.reference import (_untile,
@@ -189,12 +189,10 @@ def blend_variant(level: int, rows: torch.Tensor, gauss_ids: torch.Tensor,
                     [ctypes.c_int] + [ctypes.c_void_p] * 3
                     + [ctypes.c_int] * 4 + [ctypes.c_float]
                     + [ctypes.c_void_p] * 4)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        err = fn(level, rows.data_ptr(), gauss_ids.data_ptr(),
-                 tile_bounds.data_ptr(), width, height, tiles_x, n_tiles,
-                 t_eps, rgb.data_ptr(), final_t.data_ptr(), last.data_ptr(),
-                 stream)
+    err = launch(fn, rows.device, level, rows.data_ptr(),
+                 gauss_ids.data_ptr(), tile_bounds.data_ptr(), width, height,
+                 tiles_x, n_tiles, t_eps, rgb.data_ptr(), final_t.data_ptr(),
+                 last.data_ptr())
     if err != 0:
         raise RuntimeError(f"blend_variant: kernel launch of level {level} "
                            f"failed with CUDA error {err}")

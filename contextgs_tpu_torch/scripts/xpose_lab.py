@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from contextgs_tpu_torch.device import resolve_device
-from contextgs_tpu_torch.ops.cuda_build import c_function
+from contextgs_tpu_torch.ops.cuda_build import c_function, launch
 from contextgs_tpu_torch.scripts import ITERS, time_ms
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "xpose.cu"
@@ -71,9 +71,7 @@ def transpose_slabs(x: torch.Tensor, variant: str) -> torch.Tensor:
         fn = c_function(SOURCE, KERNELS[variant],
                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                          ctypes.c_void_p])
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = fn(x.data_ptr(), out.data_ptr(), nc, stream)
+        err = launch(fn, x.device, x.data_ptr(), out.data_ptr(), nc)
         if err != 0:
             raise RuntimeError(f"transpose_slabs: kernel launch of "
                                f"{KERNELS[variant]} failed with CUDA error "

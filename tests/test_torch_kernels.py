@@ -18,6 +18,10 @@ from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops import scan as tscan
 from contextgs_tpu_torch.ops.rasterize import reference as tref
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
+from contextgs_tpu_torch.ops.rasterize.common import (ALPHA_EPS,
+                                                      alpha_footprint,
+                                                      alpha_from_power,
+                                                      gaussian_power)
 from contextgs_tpu_torch.scene.cameras import make_camera
 from contextgs_tpu_torch.scripts import kvariants as tkv
 from contextgs_tpu_torch.scripts import xpose_lab as txl
@@ -104,21 +108,18 @@ def test_plain_version_tile_groups_agree(max_elems):
     assert c["evaluated"] <= 256 * len(ids)
 
 
-def test_plain_version_pair_counts_match_a_walk():
-    """The pair counts equal those of a per-pixel front-to-back walk, the
-    loop K1 runs, and `last_contrib` is where each walk last blended."""
-    rng = np.random.default_rng(3)
-    rows, ids, bounds = _random_rows(rng, 2, 1, 40)
-    w, h = 30, 12                                 # a ragged edge tile
-    _, _, last, got = tref.blend_tiles_reference(
-        *(torch.from_numpy(x) for x in (rows, ids, bounds)), w, h, 2,
-        count_pairs=True)
+def _walk_counts(rows, ids, bounds, w, h, tiles_x):
+    """Pair counts and last_contrib of a per-pixel front-to-back walk (the
+    loop K1 runs) in float64, and the backward's counts: its per-pixel
+    replay up to last_contrib, and a per-warp loop over the list for the
+    (warp, instance) pairs that K2's footprint cull keeps."""
     want = dict.fromkeys(tref.PAIR_KEYS, 0)
     warp_blended = set()                # (tile, warp, list position)
+    last = np.zeros((h, w), np.int64)
     r = rows.astype(np.float64)
     for y in range(h):
         for x in range(w):
-            tile = (y // 16) * 2 + x // 16
+            tile = (y // 16) * tiles_x + x // 16
             T, n_last, walk = 1.0, 0, []
             for k in range(bounds[tile], bounds[tile + 1]):
                 mx, my, a, b, cc, op = r[ids[k], :6]
@@ -140,7 +141,7 @@ def test_plain_version_pair_counts_match_a_walk():
                 walk[-1] = "blended"
                 T *= 1 - alpha
                 n_last = k - bounds[tile] + 1
-            assert last[y, x] == n_last
+            last[y, x] = n_last
             # the backward replays the list up to last_contrib
             for pos, how in enumerate(walk[:n_last]):
                 want["bwd_evaluated"] += 1
@@ -150,7 +151,196 @@ def test_plain_version_pair_counts_match_a_walk():
                     warp_blended.add((tile, ((y % 16) * 16 + x % 16) // 32,
                                       pos))
     want["bwd_warp_blended"] = len(warp_blended)
+    want["bwd_tile_blended"] = len({(t, pos) for t, _, pos in warp_blended})
+    rx, ry, _ = (v.numpy() for v in alpha_footprint(
+        torch.from_numpy(rows[:, 2:5]), torch.from_numpy(rows[:, 5])))
+    f32 = np.float32
+    for tile in range(len(bounds) - 1):
+        x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+        for warp in range(8):
+            ys = [y0 + 2 * warp, y0 + 2 * warp + 1]
+            walked = max([last[y, x] for y in ys if y < h
+                          for x in range(x0, min(x0 + 16, w))], default=0)
+            for pos in range(walked):
+                g = ids[bounds[tile] + pos]
+                mx, my = rows[g, 0], rows[g, 1]
+                misses = (mx + rx[g] < f32(x0) or mx - rx[g] > f32(x0 + 15)
+                          or my + ry[g] < f32(ys[0])
+                          or my - ry[g] > f32(ys[1]))
+                want["bwd_warp_touched"] += not misses
+    return want, last
+
+
+def test_plain_version_pair_counts_match_a_walk():
+    """The pair counts equal those of a per-pixel front-to-back walk, the
+    loop K1 runs, and `last_contrib` is where each walk last blended."""
+    rng = np.random.default_rng(3)
+    rows, ids, bounds = _random_rows(rng, 2, 1, 40)
+    w, h = 30, 12                                 # a ragged edge tile
+    _, _, last, got = tref.blend_tiles_reference(
+        *(torch.from_numpy(x) for x in (rows, ids, bounds)), w, h, 2,
+        count_pairs=True)
+    want, want_last = _walk_counts(rows, ids, bounds, w, h, 2)
+    np.testing.assert_array_equal(last.numpy(), want_last)
     assert got == want
+
+
+def _cull_rows(rng, case, n, width=48, height=32):
+    """Splat rows [n, 9] that probe K2's footprint cull: `edge` puts the
+    edge of each splat's alpha >= 1/255 region, and of its box, on a warp's
+    row boundary (between rows 2k+1 and 2k+2) or a tile's column boundary;
+    `faint` has opacities just above 1/255 (some means on pixel centres);
+    `not_pd` has conics with det <= 0 or a <= 0, some of them negative
+    definite, which blend nowhere, some indefinite."""
+    rows = np.zeros((n, 9), np.float32)
+    rows[:, 6:9] = rng.uniform(0, 1, (n, 3))
+    a = rng.uniform(0.01, 0.6, n)
+    c = rng.uniform(0.01, 0.6, n)
+    b = rng.uniform(-0.95, 0.95, n) * np.sqrt(a * c)
+    op = rng.uniform(0.05, 1.0, n)
+    mx = rng.uniform(0, width, n)
+    my = rng.uniform(0, height, n)
+    if case == "edge":
+        tau = np.log(255 * op)
+        det = a * c - b * b
+        ry_exact = np.sqrt(2 * tau * a / det)
+        rx_exact = np.sqrt(2 * tau * c / det)
+        boundary = 2 * rng.integers(1, height // 2 - 1, n) - 0.5
+        half = n // 2
+        # the exact region's edge on the boundary, then the box's edge (the
+        # exact half-extent plus about one pixel of margin) on a row
+        my[:half] = boundary[:half] - ry_exact[:half] * rng.choice([-1, 1],
+                                                                   half)
+        my[half:] = np.round(boundary[half:] + 0.5) - ry_exact[half:] - 1
+        mx[::3] = 16 * rng.integers(1, width // 16, mx[::3].size) - 0.5 \
+            - rx_exact[::3]
+    elif case == "faint":
+        op = (1 / 255) * (1 + rng.choice([1e-6, 1e-5, 1e-3, 1e-1], n))
+        mx[::2] = np.round(mx[::2])
+        my[::2] = np.round(my[::2])
+    else:           # small enough that exp(power) stays finite
+        a, c = rng.uniform(0.001, 0.015, n), rng.uniform(0.001, 0.015, n)
+        b = rng.choice([-1, 1], n) * np.sqrt(a * c) * rng.uniform(1.0, 1.5, n)
+        a[::4] = -a[::4]
+        c[1::4] = -c[1::4]
+    rows[:, 0], rows[:, 1], rows[:, 5] = mx, my, op
+    rows[:, 2:5] = np.stack([a, b, c], 1)
+    return rows
+
+
+FOOTPRINT_CASES = ("random", "thin", "near_degenerate", "faint",
+                   "opacity_one", "large", "edge", "not_pd", "tiny_opacity")
+
+
+def _footprint_case(case, rng):
+    """(means [n, 2], conics [n, 3], opacities [n]) float32 for the
+    footprint tests, adversarial by name."""
+    n = 40
+    a = rng.uniform(0.005, 0.5, n)
+    c = rng.uniform(0.005, 0.5, n)
+    rho = rng.uniform(-0.95, 0.95, n)
+    op = rng.uniform(0.05, 1.0, n)
+    if case == "thin":                   # long thin ellipses, any direction
+        a, c = rng.uniform(0.01, 2.0, n), rng.uniform(0.01, 2.0, n)
+        rho = rng.choice([-1, 1], n) * (1 - 10.0 ** -rng.uniform(2, 4, n))
+    elif case == "near_degenerate":      # b² ≈ ac, down to float rounding
+        rho = rng.choice([-1, 1], n) * (1 - 10.0 ** -rng.uniform(4, 8, n))
+        a, c = rng.uniform(0.5, 4.0, n), rng.uniform(0.5, 4.0, n)
+    elif case == "faint":
+        op = (1 / 255) * (1 + rng.choice([1e-6, 1e-5, 1e-4, 1e-2], n))
+        a, c = rng.uniform(1e-3, 0.05, n), rng.uniform(1e-3, 0.05, n)
+    elif case == "opacity_one":
+        op = np.ones(n)
+    elif case == "large":                # radii of hundreds of pixels
+        a, c = rng.uniform(1e-4, 1e-3, n), rng.uniform(1e-4, 1e-3, n)
+        op = rng.uniform(0.5, 1.0, n)
+    elif case == "edge":
+        a, c = rng.uniform(0.05, 1.0, n), rng.uniform(0.05, 1.0, n)
+    elif case == "not_pd":
+        rho = rng.choice([-1, 1], n) * rng.uniform(1.0, 1.3, n)
+        a[::3] = -a[::3]
+    elif case == "tiny_opacity":         # under 1/255 by a hair or more
+        op = (1 / 255) * (1 - rng.choice([1e-7, 1e-5, 0.5], n))
+    b = rho * np.sqrt(np.abs(a * c))
+    means = np.stack([rng.uniform(0, 1280, n), rng.uniform(0, 720, n)], 1)
+    if case in ("edge", "faint"):        # some on pixel centres
+        means[::2] = np.round(means[::2])
+    if case == "edge":                   # a pixel on the exact alpha edge
+        b[::2] = 0.0
+        reach = np.sqrt(2 * np.log(255 * op[::2]) / a[::2])
+        means[::2, 0] += reach.astype(np.float32)
+    conics = np.stack([a, b, c], 1)
+    return (means.astype(np.float32), conics.astype(np.float32),
+            op.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", FOOTPRINT_CASES)
+def test_alpha_footprint_is_conservative(case):
+    """No pixel whose float32 plain-version alpha is >= 1/255 lies outside
+    `alpha_footprint`'s box (compared as K2 compares it, in float32) or has
+    a power under -tau; opacities under 1/255 get an empty box and blend
+    nowhere, conics that are not positive definite no box; and where a
+    bounded box exists it is within about a pixel of the exact extent."""
+    rng = np.random.default_rng(FOOTPRINT_CASES.index(case) + 20)
+    means, conics, ops = _footprint_case(case, rng)
+    rx, ry, tau = alpha_footprint(torch.from_numpy(conics),
+                                  torch.from_numpy(ops))
+    for k in range(len(ops)):
+        mx, my = (torch.tensor(v) for v in means[k])
+        a, b, c = (torch.tensor(v) for v in conics[k])
+        op = torch.tensor(ops[k])
+        reach = 40 if not torch.isfinite(rx[k]) else min(
+            int(max(rx[k], ry[k])) + 6, 400)
+        px = torch.arange(int(mx) - reach, int(mx) + reach + 1,
+                          dtype=torch.float32)
+        py = torch.arange(int(my) - reach, int(my) + reach + 1,
+                          dtype=torch.float32)[:, None]
+        dx, dy = mx - px, my - py
+        power = gaussian_power(dx, dy, a, b, c)
+        alpha = alpha_from_power(power, op)
+        blends = alpha > 0
+        if ops[k] < ALPHA_EPS:
+            assert float(rx[k]) == float(ry[k]) == -np.inf
+            assert not blends.any()
+            continue
+        det = float(a) * float(c) - float(b) ** 2
+        if det <= 0 or float(a) <= 0:
+            assert float(rx[k]) == float(ry[k]) == np.inf
+        inside = (~(mx + rx[k] < px) & ~(mx - rx[k] > px)
+                  & ~(my + ry[k] < py) & ~(my - ry[k] > py))
+        assert not (blends & ~inside).any(), k
+        assert not (blends & (power < -tau[k])).any(), k
+        ln = np.log(255 * float(op))
+        ac = float(a) * float(c)
+        if torch.isfinite(rx[k]) and ln > 0.1 and det > 1e-3 * ac:
+            # the exact half-extents, widened by the slack on det and tau
+            exact = np.sqrt(2 * ln / det * np.float64([c, a]))
+            slack = np.sqrt(det / (det - 2e-5 * ac) * (1 + 2e-3 / ln))
+            assert float(rx[k]) <= exact[0] * slack + 1.01
+            assert float(ry[k]) <= exact[1] * slack + 1.01
+    if case == "random":
+        assert torch.isfinite(rx).all() and (rx > 1).all()
+
+
+def test_warp_touched_counts_match_a_per_warp_loop():
+    """`bwd_warp_touched` (and the other backward counts) equal those of a
+    per-warp loop over the lists on splats that probe the cull, with
+    ragged edge tiles, and the cull keeps every warp that blends."""
+    rng = np.random.default_rng(8)
+    w, h = 45, 30
+    rows = np.concatenate([_cull_rows(rng, case, 30, w, h)
+                           for case in ("edge", "faint", "not_pd")])
+    n = len(rows)
+    tiles = np.sort(rng.integers(0, 6, 3 * n))
+    ids = rng.integers(0, n, tiles.size).astype(np.int32)
+    bounds = np.searchsorted(tiles, np.arange(7)).astype(np.int32)
+    got = tref.blend_tiles_reference(
+        *(torch.from_numpy(x) for x in (rows, ids, bounds)), w, h, 3,
+        count_pairs=True)[3]
+    want, _ = _walk_counts(rows, ids, bounds, w, h, 3)
+    assert got == want
+    assert (got["bwd_warp_blended"] <= got["bwd_warp_touched"]
+            < got["bwd_evaluated"] // 32)
 
 
 def test_blend_forward_rejects_bad_inputs():
@@ -287,18 +477,35 @@ def _envelope_error(got, rows, ids, bounds, width, height, d_rgb, d_ft,
     return float(torch.maximum(below, above).clamp_min(0).max())
 
 
+def _cull_lists(rng, case, width=48, height=32, n=120):
+    """`_cull_rows` splats in random (tile, depth) lists of a
+    width x height image."""
+    rows = _cull_rows(rng, case, n, width, height)
+    n_tiles = -(-width // 16) * -(-height // 16)
+    tiles = np.sort(rng.integers(0, n_tiles, 4 * n))
+    ids = rng.integers(0, n, tiles.size).astype(np.int32)
+    bounds = np.searchsorted(tiles, np.arange(n_tiles + 1)).astype(np.int32)
+    return rows, ids, bounds
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "chunk_boundary", "rasterize"])
+@pytest.mark.parametrize("case", ["random", "chunk_boundary", "rasterize",
+                                  "edge", "faint", "not_pd"])
 def test_blend_backward_kernel_matches_plain_version(case):
     """K2 against its plain version on the same card inputs: inside the
     envelope of the plain gradients at T_EPS·(1±2e-4), widened by 1.5e-3 of
     each component's largest |grad| (rounding between the kernel's
-    sequential product and the plain version's log-space prefix)."""
+    sequential product and the plain version's log-space prefix). `edge`,
+    `faint` and `not_pd` probe the footprint cull (`_cull_rows`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run this file on the GPU machine")
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
-    if case == "random":
+    if case in ("edge", "faint", "not_pd"):
+        w, h = W, H
+        rows, ids, bounds = (torch.from_numpy(x).to(dev)
+                             for x in _cull_lists(rng, case))
+    elif case == "random":
         w, h = W, H
         rows, ids, bounds = (torch.from_numpy(x).to(dev)
                              for x in _random_rows(rng, TILES_X, 2, 300))
@@ -342,6 +549,11 @@ def test_blend_backward_kernel_matches_plain_version(case):
 
 K3_CASES = {                     # name: (shape, dtype, exclusive)
     "i32_wrap": ((2, 100_000), np.int32, False),
+    "i32_rows_not_multiple_of_4": ((4, 10_001), np.int32, False),
+    "f32_rows_not_multiple_of_4": ((4, 10_001), np.float32, True),
+    "i32_misaligned_1d": ((20_000,), np.int32, False),
+    "f32_misaligned_1d": ((20_000,), np.float32, False),
+    "f32_16x1M": ((16, 1 << 20), np.float32, False),
     "i32_1d_exclusive": ((5000,), np.int32, True),
     "i32_one_row_1M": ((1, 1 << 20), np.int32, False),
     "i32_1M_exclusive": ((1, (1 << 20) + 3), np.int32, True),
@@ -349,7 +561,8 @@ K3_CASES = {                     # name: (shape, dtype, exclusive)
     "f32": ((8, 33_000), np.float32, False),
     "f32_one_row_exclusive": ((1, 300_001), np.float32, True),
     **{f"i32_{n}_{e}": ((8, n), np.int32, e == "exclusive")
-       for n in (1, 127, 129, 4097) for e in ("inclusive", "exclusive")},
+       for n in (1, 127, 129, 4097, 8193)
+       for e in ("inclusive", "exclusive")},
 }
 
 
@@ -358,7 +571,9 @@ K3_CASES = {                     # name: (shape, dtype, exclusive)
 def test_lane_cumsum_kernel_matches_plain_version(case):
     """K3 against its plain version on the card: int32 and uint32 exact
     (two's complement wrap included), float32 within
-    `scan.float_tolerance(N)` · Σ_{j≤i}|x_j| of a float64 prefix."""
+    `scan.float_tolerance(N)` · Σ_{j≤i}|x_j| of a float64 prefix. Rows whose
+    length is not a multiple of 4 and a 1-D view 4 bytes off a 16-byte
+    boundary go through the kernel's scalar edge."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run this file on the GPU machine")
     shape, dtype, exclusive = K3_CASES[case]
@@ -370,6 +585,9 @@ def test_lane_cumsum_kernel_matches_plain_version(case):
     else:
         x = rng.integers(-(2 ** 28), 2 ** 28, shape).astype(np.int32)
     xt = torch.from_numpy(x).cuda()
+    if "misaligned" in case:
+        xt = torch.cat([xt[:1], xt])[1:]
+        assert xt.data_ptr() % 16 == 4 and xt.is_contiguous()
     before = tscan.launches
     got = tscan.lane_cumsum(xt, exclusive=exclusive)
     torch.cuda.synchronize()
@@ -389,6 +607,27 @@ def test_lane_cumsum_kernel_matches_plain_version(case):
         want = tscan.lane_cumsum_reference(
             xt if dtype == np.int32 else xt.view(torch.int32), exclusive)
         np.testing.assert_array_equal(sign.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_lane_cumsum_leaves_its_scratch_zeroed():
+    """K3's scratch is kept per stream and never zeroed by the wrapper: each
+    launch leaves it zeroed for the next, through a shrink and a growth of
+    the call's size, on the default stream and on another."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    rng = np.random.default_rng(9)
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for shape in ((3, 50_000), (1, 10), (40, 70_000), (2, 9000)):
+                x = rng.integers(-1000, 1000, shape).astype(np.int32)
+                got = tscan.lane_cumsum(torch.from_numpy(x).cuda())
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), np.cumsum(x, -1, dtype=np.int32))
+        torch.cuda.synchronize()
+        assert all(not bool(buf.any()) for buf in tscan._scratch.values())
+    assert len(tscan._scratch) >= 2
 
 
 @pytest.mark.cuda

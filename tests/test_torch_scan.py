@@ -77,9 +77,34 @@ def test_lane_cumsum_rejects_bad_inputs():
 
 
 def test_float_tolerance_counts_the_kernels_additions():
-    """64 additions at most inside the three passes, one more per 2^20
-    elements of the row for the carries' running sum."""
+    """80 additions at most inside a tile and into its neighbour's carry,
+    one more per 8192-element tile of the row for the look-back chain."""
     u = 2.0 ** -24
-    assert tscan.float_tolerance(1) == 65 * u
-    assert tscan.float_tolerance(2 ** 20) == 65 * u
-    assert tscan.float_tolerance(2 ** 20 + 1) == 66 * u
+    assert tscan.float_tolerance(1) == 81 * u
+    assert tscan.float_tolerance(8192) == 81 * u
+    assert tscan.float_tolerance(8193) == 82 * u
+    assert tscan.float_tolerance(2 ** 20) == (80 + 128) * u
+    assert tscan.float_tolerance(790_210) == (80 + 97) * u
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.float32])
+@pytest.mark.parametrize("exclusive", [False, True])
+def test_lane_cumsum_cpu_never_touches_the_c_library(rng, monkeypatch,
+                                                     dtype, exclusive):
+    """On a CPU tensor the wrapper runs the plain version without looking
+    up, building or launching K3."""
+    def refuse(*args, **kw):
+        raise AssertionError("the CPU path reached the C library")
+
+    from contextgs_tpu_torch.ops import cuda_build
+    for module, name in ((tscan, "c_function"), (tscan, "launch"),
+                         (tscan, "raw_stream"),
+                         (cuda_build, "c_function"),
+                         (cuda_build, "load_library"), (cuda_build, "build")):
+        monkeypatch.setattr(module, name, refuse)
+    x = rng.integers(0, 1000, (3, 5000)).astype(dtype)
+    got = tscan.lane_cumsum(torch.from_numpy(x), exclusive=exclusive)
+    want = np.cumsum(x, axis=1, dtype=dtype)
+    if exclusive:
+        want = want - x
+    np.testing.assert_array_equal(got.numpy(), want)

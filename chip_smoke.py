@@ -14,13 +14,18 @@ Phases, one JSON object per line; any failed check exits non-zero:
    the previous design's K3 and K2 sources lie in build/prev (scan_prev.cu,
    blend_backward_prev.cu, taken from git history: not in the repository,
    so a checkout skips them), those, to time old against new in this
-   call. k4_sass: K4's levels in
+   call; and K1 at its other warp geometries (K1_GEOMETRIES, written from
+   its source into build/k1_geometries). k1_ptxas: registers, shared
+   memory and spills of K1, of its other geometries and of K4's level 4,
+   the first design of K1. k4_sass: K4's levels in
    the SASS cuobjdump prints (skipped where the toolkit has none), so that
    the sinks are seen to keep every stage's work: the bounds' loads at
    level 0, the row gather's loads and staging stores from level 1 on, the
-   exp from level 2 on only, and a walk that grows from level 2 to 4.
+   exp from level 2 on only, and a walk that grows from level 2 to 4; K1's
+   own counts beside level 4's, not checked.
 2. k1_check — K1 against its plain PyTorch version on the card: golden small
-   cases (2e-5), then a 1280x720 view of a 20k-anchor decoded scene (max
+   cases and the cull cases below (2e-5), then a 1280x720 view of a
+   20k-anchor decoded scene (max
    2e-4, mean 1e-6: an include decision at T·(1-α) ≈ 1e-4 may flip between
    the plain version's log-space prefix and the kernel's sequential product,
    and each flip moves a pixel by at most α·T ≤ 1e-4).
@@ -45,6 +50,9 @@ Phases, one JSON object per line; any failed check exits non-zero:
    golden cases and the kernel lab's 1x3600 table: v0 exact, the sinks of
    v1 and v2 1e-5 relative, v3's sink (unscaled) and v4 with K1's
    tolerances; v4 bit-equal to K1, v3's T and last_contrib equal to K1's.
+   k1_old_new — K1, and K1 at each other warp geometry, torch.equal to K4's
+   level 4 (the first design) in rgb, final T and last_contrib on the
+   golden cases, the cull cases and the lab's 1x3600 table.
    k56_check — K5 and K6 equal to x.transpose(1, 2).contiguous() at the
    lab's [8394, 128, 16] and at ragged slab counts.
 3. serve — the main path of serving at full width: a decoded scene of
@@ -87,7 +95,12 @@ Phases, one JSON object per line; any failed check exits non-zero:
    relative: atomics and reduction order differ); context_small_cpu_vs_card:
    5 context steps likewise, both sides given the same draws (loss and
    bit_per_param 1e-3 relative); k1_bound on the last step's inputs (K1
-   on the training path); k2_bound: K2 timed and bounded on the last step's
+   on the training path); k1_old_new on the serve view's and the last
+   step's K1 inputs: K1 torch.equal to the first design, the two timed in
+   turns (v4, K1, K1, v4) by card_ms and by events, each other geometry in
+   turns with K1, and the (warp, instance) pairs each geometry walks
+   (fwd_warp_touched, fwd_warp_exp) beside the first design's walked
+   pairs / 32; k2_bound: K2 timed and bounded on the last step's
    inputs and on the serve view's, each beside the previous K2 in turns
    where its copy is present, with the shuffles and global atomics of both
    designs counted from the pair counts; and k2_knockouts: K2 beside its
@@ -183,6 +196,17 @@ K2_KNOCKOUTS = {
 }
 K2_KNOCKOUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "k2_knockouts")
+# K1's warp geometries, by the pixels a warp covers: (kWarpW, kPerThread) of
+# csrc/blend_forward.cu, a warp kWarpW wide and 32 / kWarpW · kPerThread
+# tall. The source holds the one chosen; the others are written from it by
+# text edits into build/ and timed beside it (skipped where the edits do not
+# apply).
+K1_GEOMETRIES = {"16x2": (16, 1), "8x4": (8, 1), "8x8_2px": (8, 2),
+                 "16x4_2px": (16, 2)}
+K1_GEOMETRY_LINES = (r"constexpr int kWarpW = (\d+);",
+                     r"constexpr int kPerThread = (\d+);")
+K1_GEOMETRY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "k1_geometries")
 # float32 operations of K4's levels 2 and 3 (scripts/csrc/kvariants.cu) on a
 # pair, keyed as OPS: level 2 walks every listed pair without an early exit
 # and adds each alpha >= 1/255 to its sink (1); level 3 adds T·(1-α) (2) and,
@@ -492,7 +516,8 @@ def k1_bound_of(rows, ids, bounds, width, height, pairs):
     """K1's bound on these inputs: bytes, the rows of gaussians with tile
     instances, ids and bounds read once, rgb, final T and last_contrib
     written once; operations and exps of the pairs that reach alpha >=
-    1/255 (walked: of every pair the loop reaches)."""
+    1/255 (walked: of every pair the first design's loop reaches, each
+    pixel walking its whole list until done)."""
     rows_read = int(torch.unique(ids).numel())
     n_bytes = (rows_read * rows.shape[1] * 4 + ids.numel() * 4
                + bounds.numel() * 4 + height * width * (3 + 1 + 1) * 4)
@@ -543,6 +568,152 @@ def k2_knockout_sources():
                 f.write(variant)
             out[name] = path
     return out
+
+
+def k1_geometry(text):
+    """The name in K1_GEOMETRIES of the geometry a K1 source holds."""
+    found = tuple(int(re.search(line, text).group(1))
+                  for line in K1_GEOMETRY_LINES)
+    return next(n for n, g in K1_GEOMETRIES.items() if g == found)
+
+
+def k1_warp(name):
+    """(wide, tall) pixels of a warp of the K1 geometry `name`, as
+    reference.FWD_WARP gives them."""
+    width, per_thread = K1_GEOMETRIES[name]
+    return width, 32 // width * per_thread
+
+
+def k1_geometry_sources():
+    """(the geometry K1's source holds, {name: path} of the others written
+    from it, those whose edits apply)."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    text = tile_kernel.SOURCE.read_text()
+    chosen = k1_geometry(text)
+    os.makedirs(K1_GEOMETRY_DIR, exist_ok=True)
+    out = {}
+    for name, values in K1_GEOMETRIES.items():
+        variant = text
+        for line, value in zip(K1_GEOMETRY_LINES, values):
+            variant = re.sub(line, line.replace(r"(\d+)", str(value)),
+                             variant, count=1)
+        if name != chosen and k1_geometry(variant) == name:
+            path = os.path.join(K1_GEOMETRY_DIR, f"blend_forward_{name}.cu")
+            with open(path, "w") as f:
+                f.write(variant)
+            out[name] = path
+    return chosen, out
+
+
+def k1_from(source):
+    """The K1 of `source` (another warp geometry) behind the launch of K1's
+    wrapper: the same arguments, the outputs allocated alike, the cached
+    function."""
+    from contextgs_tpu_torch.ops import cuda_build
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    def call(rows, ids, bounds, width, height, t_eps=1e-4):
+        out = (torch.empty((3, height, width), device=rows.device),
+               torch.empty((height, width), device=rows.device),
+               torch.empty((height, width), dtype=torch.int32,
+                           device=rows.device))
+        fn = cuda_build.c_function(source, "blend_forward",
+                                   tile_kernel.FORWARD_ARGTYPES)
+        err = cuda_build.launch(
+            fn, rows.device, rows.data_ptr(), ids.data_ptr(),
+            bounds.data_ptr(), width, height, (width + 15) // 16,
+            bounds.numel() - 1, t_eps, *(x.data_ptr() for x in out))
+        check(err == 0, f"K1 of {source}: CUDA error {err}")
+        return out
+    return call
+
+
+def ptxas_kernels(stem):
+    """{kernel: ptxas's lines} of a source built in this process: stack,
+    spills, registers and shared memory of each kernel."""
+    from contextgs_tpu_torch.ops import cuda_build
+
+    out = cuda_build.build_log.get(stem, {}).get("ptxas", "")
+    kernels, name = {}, None
+    for line in out.splitlines():
+        found = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)", line)
+        if found:
+            name = found.group(1)
+            kernels.setdefault(name, [])
+        elif name and ("Used" in line or "spill" in line):
+            kernels[name].append(line.replace("ptxas info    :", "").strip())
+    return kernels
+
+
+def k1_equals_v4(case, rows, ids, bounds, width, height, t_eps=1e-4,
+                 others=None):
+    """K1 against the first design, K4's level 4 (scripts/csrc/
+    kvariants.cu), on the same card inputs: rgb, final T and last_contrib
+    torch.equal; and each other warp geometry of K1 in `others` ({name:
+    call}) likewise. Emits k1_old_new and fails unless all are equal."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+    from contextgs_tpu_torch.scripts import kvariants
+
+    args = (rows, ids, bounds, width, height, t_eps)
+    old = kvariants.blend_variant(4, *args)
+    outs = {"k1": tile_kernel.blend_forward(*args)}
+    outs.update({name: call(*args) for name, call in (others or {}).items()})
+    torch.cuda.synchronize()
+    equal = {name: [bool(torch.equal(a, b)) for a, b in zip(out, old)]
+             for name, out in outs.items()}
+    emit(phase="k1_old_new", case=case, equal_rgb_t_last=equal,
+         last_contrib_max=int(old[2].max()))
+    check(all(all(v) for v in equal.values()),
+          f"K1 bit-equal to K4 v4 (the first design) on {case}")
+
+
+def k1_old_new(case, args, others, reps=20):
+    """K1 and the first design (K4's level 4) on the same inputs (rows,
+    ids, bounds, width, height, t_eps), in turns (v4, K1, K1, v4), by
+    `card_ms` (host gaps hidden) and by CUDA events over back-to-back calls;
+    each other warp geometry in `others` in turns with K1 by `card_ms`;
+    and the (warp, instance) pairs each geometry walks and takes an exp on,
+    beside the walked pairs / 32 of the first design."""
+    from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
+    from contextgs_tpu_torch.scripts import kvariants
+
+    rows, ids, bounds, width, height, t_eps = args
+
+    def old():
+        return kvariants.blend_variant(4, *args)
+
+    def new():
+        return tile_kernel.blend_forward(*args)
+
+    kernel = in_turns(old, new, card_ms)
+    events = in_turns(old, new, lambda f: cuda_ms(f, reps))
+    geometries = {name: in_turns(new, lambda c=call: c(*args), card_ms)
+                  for name, call in others.items()}
+    warps = {}
+    for name in K1_GEOMETRIES:
+        with wrapped(reference, "FWD_WARP", lambda _, n=name: k1_warp(n)):
+            pairs = reference.blend_tiles_reference(
+                rows, ids, bounds, width, height, (width + 15) // 16,
+                t_eps=t_eps, count_pairs=True)[3]
+        warps[name] = dict(fwd_warp_touched=pairs["fwd_warp_touched"],
+                           fwd_warp_exp=pairs["fwd_warp_exp"],
+                           pixels=32 * K1_GEOMETRIES[name][1])
+    res = dict(case=case, v4_kernel_ms=kernel["prev_ms"],
+               k1_kernel_ms=kernel["ms"], kernel_turns=kernel,
+               v4_ms=events["prev_ms"], k1_ms=events["ms"],
+               events_turns=events,
+               v4_over_k1_kernel=kernel["prev_ms"] / kernel["ms"],
+               geometries={name: dict(ms=t["ms"], k1_ms=t["prev_ms"],
+                                      turns=t)
+                           for name, t in geometries.items()},
+               warp_pairs=warps,
+               v4_walked_warp_pairs=pairs["evaluated"] / 32,
+               pairs_evaluated=pairs["evaluated"],
+               pairs_tested=pairs["tested"], pairs_blended=pairs["blended"])
+    emit(phase="k1_old_new", **res)
+    return res
 
 
 def k2_knockouts(sources, args):
@@ -1095,12 +1266,13 @@ def check_k4_sass(k4, k1):
     the two bounds; from level 1 on the id, the nine row values and the
     five staging stores of the row gather are there; the exp from level 2
     on only; and the walk grows from level 2 to 4. (Static counts need not
-    grow from level 0 to 2: -O3 unrolls level 1's short batch loop.)"""
+    grow from level 0 to 2: -O3 unrolls level 1's short batch loop.) K1's
+    own counts are printed beside level 4's, the first design, and not
+    checked: the two designs differ."""
     levels = [next(v for k, v in k4.items() if f"ILi{lv}E" in k)
               for lv in K4_LEVELS]
-    k1 = list(k1.values())[0]
-    emit(phase="k4_sass", levels=levels, k1=k1, v4_counts_equal_k1=(
-        levels[4] == k1))
+    emit(phase="k4_sass", levels=levels, k1_sass=list(k1.values())[0],
+         v4_sass=levels[4])
     check(levels[0]["LDG"] >= 2 and levels[0]["STS"] == 0,
           "K4 SASS: level 0 reads the bounds and stages nothing")
     check(all(lv["LDG"] >= 12 and lv["STS"] >= 5 for lv in levels[1:]),
@@ -1388,12 +1560,18 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     prev = prev_kernels()
     knockouts = k2_knockout_sources()
+    geometry, geometry_sources = k1_geometry_sources()
+    check(reference.FWD_WARP == k1_warp(geometry),
+          "reference.FWD_WARP is the warp of K1's source")
     t0 = time.perf_counter()
     cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
                                             xpose_lab.SOURCE)
                      + (tuple(prev.values()) if prev else ())
-                     + tuple(knockouts.values()))
+                     + tuple(knockouts.values())
+                     + tuple(geometry_sources.values()))
     build_s = time.perf_counter() - t0
+    k1_geometries = {name: k1_from(src)
+                     for name, src in geometry_sources.items()}
 
     def ptxas(stem):
         out = cuda_build.build_log.get(stem, {}).get("ptxas", "")
@@ -1406,7 +1584,13 @@ def main() -> int:
          k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"),
          k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"),
          prev_sources=prev, k2_prev_ptxas=ptxas("blend_backward_prev"),
-         k2_knockouts=sorted(knockouts))
+         k2_knockouts=sorted(knockouts), k1_geometry=geometry,
+         k1_other_geometries=sorted(geometry_sources))
+    emit(phase="k1_ptxas", k1=ptxas_kernels("blend_forward"),
+         v4_first_design={k: v for k, v in ptxas_kernels("kvariants").items()
+                          if "ILi4E" in k},
+         other_geometries={name: ptxas_kernels(f"blend_forward_{name}")
+                           for name in geometry_sources})
     k4_sass = sass_summary(kvariants.SOURCE)
     if k4_sass is None:
         emit(phase="k4_sass", cuobjdump=None)
@@ -1414,10 +1598,11 @@ def main() -> int:
         check_k4_sass(k4_sass, sass_summary(tile_kernel.SOURCE))
 
     # ---- 2. K1 against its plain version ----
-    for name, (rows, ids, bounds, w, h) in golden_cases(dev):
+    for name, (rows, ids, bounds, w, h) in (list(golden_cases(dev))
+                                            + list(cull_cases(dev))):
         res = compare_k1(rows, ids, bounds, w, h)
         emit(phase="k1_check", case=name, **res)
-        check(res["finite"] and res["max_abs"] <= 2e-5, f"K1 golden {name}")
+        check(res["finite"] and res["max_abs"] <= 2e-5, f"K1 {name}")
         check(res["last_contrib_mismatch"] == 0, f"K1 last_contrib {name}")
     got_g = tile_kernel.blend_forward(*next(iter(
         c for n, c in golden_cases(dev) if n == "chunk_boundary")))[0][1]
@@ -1435,6 +1620,13 @@ def main() -> int:
     k4_err = check_k4("lab_1x3600", *kvariants.lab_inputs(
         1, tiles_x * tiles_y, device=dev), 16 * tiles_x, 16 * tiles_y,
         big=True)
+    # K1 bit-equal to the first design (K4's level 4), and so is every
+    # other geometry of K1's
+    for name, case in (list(golden_cases(dev)) + list(cull_cases(dev))
+                       + [("lab_1x3600", (*kvariants.lab_inputs(
+                           1, tiles_x * tiles_y, device=dev), 16 * tiles_x,
+                           16 * tiles_y))]):
+        k1_equals_v4(name, *case, others=k1_geometries)
     k56_err = check_k56(dev)
 
     cfg = TrainConfig(model=ModelConfig())
@@ -1775,6 +1967,14 @@ def main() -> int:
     emit(phase="k1_bound", case="train_last_step_1280x720",
          **k1_train_bound, k1_ms=k1_train_ms,
          share_of_bound=k1_train_bound["bound_ms"] / k1_train_ms)
+    # K1 against the first design: bit-equal, then in turns
+    k1_turns = {}
+    for case, args in (("serve_100k_1280x720", (*serve_k2[:3], W, H,
+                                                serve_k2[10])),
+                       ("train_last_step_1280x720", (rows, ids, bounds, W, H,
+                                                     kept[10]))):
+        k1_equals_v4(case, *args, others=k1_geometries)
+        k1_turns[case] = k1_old_new(case, args, k1_geometries)
     # K2 against the previous one, in turns on the same inputs: the last
     # step's and the serve view's
     k2_serve_ms = cuda_ms(lambda: tile_kernel.blend_backward(*serve_k2), 20)
@@ -1843,7 +2043,13 @@ def main() -> int:
              bound_walked_ms=k1_bound["bound_walked_ms"],
              train_ms=k1_train_ms, train_bound_ms=k1_train_bound["bound_ms"],
              train_bound_by=contract_label(k1_train_bound),
-             train_bound_walked_ms=k1_train_bound["bound_walked_ms"]),
+             train_bound_walked_ms=k1_train_bound["bound_walked_ms"],
+             geometry=geometry,
+             first_design_ms={case: t["v4_ms"]
+                              for case, t in k1_turns.items()},
+             other_geometries_kernel_ms={
+                 case: {n: g["ms"] for n, g in t["geometries"].items()}
+                 for case, t in k1_turns.items()}),
         dict(name="blend_backward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_backward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:548",

@@ -27,10 +27,11 @@ from contextgs_tpu_torch.ops.rasterize.projection import ProjectedGaussians
 from contextgs_tpu_torch.ops.rasterize.sorting import TileInstances
 
 MAX_ELEMS = 1 << 26    # padded (instance, pixel) pairs per tile group
-WARP = 32              # pixels of a tile that one warp of K1/K2 walks
-PAIR_KEYS = ("evaluated", "exp", "tested", "blended", "bwd_evaluated",
-             "bwd_exp", "bwd_blended", "bwd_warp_blended", "bwd_warp_touched",
-             "bwd_tile_blended")
+WARP = 32              # pixels of a tile that one warp of K2 walks: 16x2
+FWD_WARP = (8, 4)      # the pixels of one warp of K1: wide, tall
+PAIR_KEYS = ("evaluated", "exp", "tested", "blended", "fwd_warp_touched",
+             "fwd_warp_exp", "bwd_evaluated", "bwd_exp", "bwd_blended",
+             "bwd_warp_blended", "bwd_warp_touched", "bwd_tile_blended")
 
 
 def _tile_groups(lens: list, pix: int, max_elems: int):
@@ -69,6 +70,11 @@ def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
     alpha = alpha_from_power(power, r[..., 5, None])
     alpha = torch.where(valid[..., None], alpha, 0.0)
     exp_taken = power <= 0.0 if pairs is not None else None
+    if pairs is not None:
+        # K1's exp prefilter keeps power >= -tau
+        tau = alpha_footprint(r[..., 2:5].detach(), r[..., 5].detach())[2]
+        exp_kept = exp_taken & ~(power < -tau[..., None])
+        del tau
     del dx, dy, power
 
     with torch.no_grad():
@@ -88,7 +94,11 @@ def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
                           ("tested", walked & (alpha > 0)),
                           ("blended", walked & (alpha > 0) & include)):
             pairs[key] += int(mask.sum())
-        del walked
+        touched, exp_warps = _fwd_warp_counts(r.detach(), walked, exp_kept,
+                                              px, py, tile_size)
+        pairs["fwd_warp_touched"] += touched
+        pairs["fwd_warp_exp"] += exp_warps
+        del walked, exp_kept
     alpha = torch.where(include, alpha, 0.0)
     lg = torch.log1p(-alpha)
     w = alpha * torch.exp(torch.cumsum(lg, 1) - lg)        # [nt, L, pix]
@@ -110,6 +120,35 @@ def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
         pairs["bwd_warp_touched"] += _warp_touched(
             r.detach(), valid, last * inside, px, py, tile_size)
     return rgb, final_t, last
+
+
+def _fwd_warp_counts(r, walked, exp_kept, px, py, tile_size):
+    """(warp, instance) pairs of K1's walk, warps of FWD_WARP pixels:
+    (touched, exp) — touched, those whose `alpha_footprint` box meets the
+    warp's pixels at list positions where a pixel of the warp is still
+    walking (not yet done, in the image), which K1's compacted lists keep;
+    exp, those of them where such a pixel has 0 >= power >= -tau, where the
+    warp takes the exp. r [nt, L, 9] rows, walked and exp_kept [nt, L, pix]
+    (walked: the pixel walks that position), px, py [nt, pix]."""
+    ww, wh = FWD_WARP
+    cols, wrows = tile_size // ww, tile_size // wh
+    nt, n_pos = walked.shape[:2]
+    rx, ry, _ = alpha_footprint(r[..., 2:5], r[..., 5])          # [nt, L]
+    x0 = px[:, :1].to(r.dtype) + ww * torch.arange(cols, device=r.device)
+    y0 = py[:, :1].to(r.dtype) + wh * torch.arange(wrows, device=r.device)
+    mx, my = r[..., 0, None], r[..., 1, None]
+    meets_x = (~((mx + rx[..., None]) < x0[:, None])
+               & ~((mx - rx[..., None]) > x0[:, None] + (ww - 1)))
+    meets_y = (~((my + ry[..., None]) < y0[:, None])
+               & ~((my - ry[..., None]) > y0[:, None] + (wh - 1)))
+    meets = meets_y[..., :, None] & meets_x[..., None, :]       # [nt, L, r, c]
+
+    def per_warp(mask):
+        return mask.reshape(nt, n_pos, wrows, wh, cols, ww).any(-1).any(3)
+
+    touched = meets & per_warp(walked)
+    return (int(touched.sum()),
+            int((touched & per_warp(walked & exp_kept)).sum()))
 
 
 def _warp_touched(r, valid, last, px, py, tile_size) -> int:
@@ -172,7 +211,11 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
     front-to-back walk reaches before each pixel is done — the work this data
     needs: `evaluated` (power computed), `exp` (power ≤ 0, so the exp is
     taken), `tested` (alpha ≥ 1/255, so T·(1-α) is tested) and `blended`
-    (included in the pixel); and those the backward walks, list positions up
+    (included in the pixel); `fwd_warp_touched`, the (warp, instance) pairs
+    that K1's per-warp lists keep (box meets the warp of FWD_WARP pixels, a
+    pixel of it still walking), and `fwd_warp_exp`, those of them where the
+    warp takes an exp (a walking pixel at 0 >= power >= -tau); and those
+    the backward walks, list positions up
     to `last_contrib`: `bwd_evaluated`, `bwd_exp`, `bwd_blended`,
     `bwd_warp_blended`, the (warp of 32 pixels, instance) pairs with at least
     one pixel blended, each of which costs K2 one warp reduction,

@@ -240,7 +240,8 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
             log.info("iter %d size estimate: %s", it,
                      estimate_bits(model, cfg, ts))
 
-        if it in cfg.checkpoint_iterations and cfg.model_path:
+        if ((it in cfg.checkpoint_iterations or it in cfg.save_iterations)
+                and cfg.model_path):
             os.makedirs(cfg.model_path, exist_ok=True)
             save_checkpoint(
                 os.path.join(cfg.model_path, f"chkpnt{it}.pt"), model.params,

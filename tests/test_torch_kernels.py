@@ -10,6 +10,8 @@ the GPU machine, which has no JAX:
 Tests marked `cuda` skip without a card.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -110,12 +112,15 @@ def test_plain_version_tile_groups_agree(max_elems):
 
 def _walk_counts(rows, ids, bounds, w, h, tiles_x):
     """Pair counts and last_contrib of a per-pixel front-to-back walk (the
-    loop K1 runs) in float64, and the backward's counts: its per-pixel
-    replay up to last_contrib, and a per-warp loop over the list for the
-    (warp, instance) pairs that K2's footprint cull keeps."""
+    loop K1 runs) in float64; a per-warp loop over the lists for the (warp,
+    instance) pairs that K1's per-warp lists keep; and the backward's
+    counts: its per-pixel replay up to last_contrib, and a per-warp loop
+    over the list for the (warp, instance) pairs that K2's footprint cull
+    keeps."""
     want = dict.fromkeys(tref.PAIR_KEYS, 0)
     warp_blended = set()                # (tile, warp, list position)
     last = np.zeros((h, w), np.int64)
+    walk_len = np.zeros((h, w), np.int64)     # list positions walked
     r = rows.astype(np.float64)
     for y in range(h):
         for x in range(w):
@@ -142,6 +147,7 @@ def _walk_counts(rows, ids, bounds, w, h, tiles_x):
                 T *= 1 - alpha
                 n_last = k - bounds[tile] + 1
             last[y, x] = n_last
+            walk_len[y, x] = len(walk)
             # the backward replays the list up to last_contrib
             for pos, how in enumerate(walk[:n_last]):
                 want["bwd_evaluated"] += 1
@@ -152,9 +158,33 @@ def _walk_counts(rows, ids, bounds, w, h, tiles_x):
                                       pos))
     want["bwd_warp_blended"] = len(warp_blended)
     want["bwd_tile_blended"] = len({(t, pos) for t, _, pos in warp_blended})
-    rx, ry, _ = (v.numpy() for v in alpha_footprint(
+    rx, ry, tau = (v.numpy() for v in alpha_footprint(
         torch.from_numpy(rows[:, 2:5]), torch.from_numpy(rows[:, 5])))
     f32 = np.float32
+    fw, fh = tref.FWD_WARP
+    for tile in range(len(bounds) - 1):
+        x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
+        for wy, wx in ((wy, wx) for wy in range(y0, y0 + 16, fh)
+                       for wx in range(x0, x0 + 16, fw)):
+            pixels = [(y, x) for y in range(wy, min(wy + fh, h))
+                      for x in range(wx, min(wx + fw, w))]
+            for pos in range(bounds[tile + 1] - bounds[tile]):
+                walking = [(y, x) for y, x in pixels if pos < walk_len[y, x]]
+                g = ids[bounds[tile] + pos]
+                mx, my = rows[g, 0], rows[g, 1]
+                if not walking or (mx + rx[g] < f32(wx)
+                                   or mx - rx[g] > f32(wx + fw - 1)
+                                   or my + ry[g] < f32(wy)
+                                   or my - ry[g] > f32(wy + fh - 1)):
+                    continue
+                want["fwd_warp_touched"] += 1
+                a, b, cc = rows[g, 2:5]
+                powers = []
+                for y, x in walking:     # gaussian_power's float32 order
+                    dx, dy = mx - f32(x), my - f32(y)
+                    powers.append(f32(-0.5) * (a * dx * dx + cc * dy * dy)
+                                  - b * dx * dy)
+                want["fwd_warp_exp"] += any(-tau[g] <= p <= 0 for p in powers)
     for tile in range(len(bounds) - 1):
         x0, y0 = (tile % tiles_x) * 16, (tile // tiles_x) * 16
         for warp in range(8):
@@ -343,6 +373,138 @@ def test_warp_touched_counts_match_a_per_warp_loop():
             < got["bwd_evaluated"] // 32)
 
 
+def test_fwd_warp_counts_match_a_per_warp_loop():
+    """`fwd_warp_touched` and `fwd_warp_exp` (and the other counts) equal
+    those of a per-warp loop over the lists on splats that probe the cull,
+    with ragged edge tiles; the warps walk fewer (warp, instance) pairs
+    than the lists hold, and take the exp on no more of them."""
+    rng = np.random.default_rng(18)
+    w, h = 41, 27
+    rows = np.concatenate([_cull_rows(rng, case, 30, w, h)
+                           for case in ("edge", "faint", "not_pd")])
+    n = len(rows)
+    tiles = np.sort(rng.integers(0, 6, 3 * n))
+    ids = rng.integers(0, n, tiles.size).astype(np.int32)
+    bounds = np.searchsorted(tiles, np.arange(7)).astype(np.int32)
+    got = tref.blend_tiles_reference(
+        *(torch.from_numpy(x) for x in (rows, ids, bounds)), w, h, 3,
+        count_pairs=True)[3]
+    want, _ = _walk_counts(rows, ids, bounds, w, h, 3)
+    assert got == want
+    fw, fh = tref.FWD_WARP
+    assert (0 < got["fwd_warp_exp"] <= got["fwd_warp_touched"]
+            < got["evaluated"] // (fw * fh))
+
+
+def test_fwd_warp_is_the_warp_of_the_kernel_source():
+    """`reference.FWD_WARP`, the warp at which the plain version counts K1's
+    pairs, is the warp of csrc/blend_forward.cu: kWarpW pixels wide and
+    32 / kWarpW · kPerThread tall, a whole number of them to a tile."""
+    text = tile_kernel.SOURCE.read_text()
+    width, per_thread = (
+        int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+        for name in ("kWarpW", "kPerThread"))
+    assert tref.FWD_WARP == (width, 32 // width * per_thread)
+    assert 16 % tref.FWD_WARP[0] == 0 and 16 % tref.FWD_WARP[1] == 0
+
+
+def _k1_cull_keep(rows, ids, bounds, tiles_x):
+    """What K1's cull keeps of each (tile, list position, pixel) pair, over
+    lists padded to the longest, L: ([n_tiles, L, 256] bool, the instance's
+    `alpha_footprint` box meets the warp of FWD_WARP pixels that holds the
+    pixel; [n_tiles, L, 1] float32, -tau)."""
+    fw, fh = tref.FWD_WARP
+    rx, ry, tau = alpha_footprint(rows[:, 2:5], rows[:, 5])
+    n_tiles = bounds.numel() - 1
+    longest = int((bounds[1:] - bounds[:-1]).max())
+    p = torch.arange(256)
+    keep = torch.zeros((n_tiles, longest, 256), dtype=torch.bool)
+    ntau = torch.zeros((n_tiles, longest, 1))
+    for t in range(n_tiles):
+        wx = ((t % tiles_x) * 16 + p % 16 // fw * fw).float()
+        wy = ((t // tiles_x) * 16 + p // 16 // fh * fh).float()
+        g = ids[bounds[t]:bounds[t + 1]].long()[:, None]
+        mx, my = rows[g, 0], rows[g, 1]
+        keep[t, :len(g)] = (~(mx + rx[g] < wx) & ~(mx - rx[g] > wx + fw - 1)
+                            & ~(my + ry[g] < wy) & ~(my - ry[g] > wy + fh - 1))
+        ntau[t, :len(g)] = -tau[g]
+    return keep, ntau
+
+
+def _cull_model_case(case):
+    """(rows, ids, bounds, width, height) numpy: `_footprint_case`'s splats
+    in a 45x30 image, every tile listing all of them in one random depth
+    order. Each splat with a bounded alpha >= 1/255 region has the tip of
+    that region furthest in x (even splats) or in y (odd ones) at a random
+    point of the image, where the box is tight; the rest keep their place
+    between pixel centres (positions modulo the image's size).
+    `saturating`: one 16x16 tile of 200 opaque splats whose pixels reach
+    T < 1e-4 and exclude the rest."""
+    rng = np.random.default_rng(40 + (FOOTPRINT_CASES + ("saturating",))
+                                .index(case))
+    if case == "saturating":
+        n, w, h = 200, 16, 16
+        means = rng.uniform(0, 16, (n, 2))
+        a, c = rng.uniform(0.01, 0.1, n), rng.uniform(0.01, 0.1, n)
+        conics = np.stack([a, rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c), c], 1)
+        ops = rng.uniform(0.6, 0.99, n)
+    else:
+        w, h = 45, 30
+        means, conics, ops = _footprint_case(case, rng)
+        n = len(ops)
+        a, b, c = conics.astype(np.float64).T
+        ln = np.log(255 * ops.astype(np.float64))
+        det = a * c - b * b
+        bounded = (det > 0) & (a > 0) & (ln > 0)
+        with np.errstate(all="ignore"):
+            rx, ry = np.sqrt(2 * ln * c / det), np.sqrt(2 * ln * a / det)
+            to_tip = np.where((np.arange(n) % 2 == 0)[:, None],
+                              np.stack([rx, -b * rx / c], 1),
+                              np.stack([-b * ry / a, ry], 1))
+        tips = np.stack([rng.uniform(2, w - 2, n), rng.uniform(2, h - 2, n)],
+                        1)
+        means = np.where(bounded[:, None],
+                         tips + rng.choice([-1, 1], n)[:, None] * to_tip,
+                         np.fmod(means, np.float32([w, h])))
+    rows = np.zeros((n, 9), np.float32)
+    rows[:, 0:2], rows[:, 2:5], rows[:, 5] = means, conics, ops
+    rows[:, 6:9] = rng.uniform(0, 1, (n, 3))
+    n_tiles = -(-w // 16) * -(-h // 16)
+    ids = np.tile(rng.permutation(n), n_tiles).astype(np.int32)
+    bounds = (n * np.arange(n_tiles + 1)).astype(np.int32)
+    return rows, ids, bounds, w, h
+
+
+@pytest.mark.parametrize("case", FOOTPRINT_CASES + ("saturating",))
+def test_plain_model_of_k1_cull_is_bit_equal(case, monkeypatch):
+    """A plain model of K1's cull — the plain version with the alpha of
+    every pair outside its warp's box, or under -tau, set to 0 — gives
+    rgb, final T and last_contrib bit-equal to the plain version's: the
+    cull removes only pairs whose alpha is under 1/255."""
+    rows, ids, bounds, w, h = (torch.from_numpy(x) if isinstance(
+        x, np.ndarray) else x for x in _cull_model_case(case))
+    tiles_x = -(-w // 16)
+    want = tref.blend_tiles_reference(rows, ids, bounds, w, h, tiles_x)
+    keep, ntau = _k1_cull_keep(rows, ids, bounds, tiles_x)
+    culled = []
+    plain_alpha = tref.alpha_from_power
+
+    def k1_alpha(power, opacity):
+        kept = keep & ~(power < ntau)
+        culled.append(int((~kept).sum()))
+        return torch.where(kept, plain_alpha(power, opacity), 0.0)
+
+    monkeypatch.setattr(tref, "alpha_from_power", k1_alpha)
+    got = tref.blend_tiles_reference(rows, ids, bounds, w, h, tiles_x)
+    assert len(culled) == 1           # one tile group: the masks line up
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if case != "large":               # radii of hundreds of pixels
+        assert culled[0] > 0
+    if case == "saturating":
+        assert float(want[1].min()) < 1e-3 and int(want[2].max()) < len(ids)
+
+
 def test_blend_forward_rejects_bad_inputs():
     rows, ids, bounds = _chunk_boundary_rows()
     with pytest.raises(ValueError, match="unsupported device"):
@@ -352,14 +514,20 @@ def test_blend_forward_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "chunk_boundary", "rasterize"])
+@pytest.mark.parametrize("case", ["random", "chunk_boundary", "rasterize",
+                                  "edge", "faint", "not_pd"])
 def test_blend_forward_kernel_matches_plain_version(case):
-    """K1 against its plain version on the same card inputs (2e-5)."""
+    """K1 against its plain version on the same card inputs (2e-5);
+    `edge`, `faint` and `not_pd` probe its footprint cull (`_cull_rows`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run this file on the GPU machine")
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    if case == "random":
+    if case in ("edge", "faint", "not_pd"):
+        w, h = W, H
+        rows, ids, bounds = (torch.from_numpy(x).to(dev)
+                             for x in _cull_lists(rng, case))
+    elif case == "random":
         w, h = W, H
         rows, ids, bounds = (torch.from_numpy(x).to(dev)
                              for x in _random_rows(rng, TILES_X, 2, 300))

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`contextgs_tpu_torch`) on one NVIDIA
-card: the quickest proof that the port builds, serves and trains on the GPU.
+card: the quickest proof that the port builds, serves, trains and codes on
+the GPU.
 
     python3 chip_smoke.py
 
-Phases, one JSON object per line; any failed check exits non-zero:
+Phases, one JSON object per line. A failed check or any other exception
+prints one line {"phase": "failed", "failed_in": <phase>, "error": ...}
+(the traceback goes to stderr) and exits 1; the result line is printed only
+after every phase has held.
 
 1. device  — the card's name and power limit; K1, K2, K3, K4
    (scripts/csrc/kvariants.cu) and K5/K6 (scripts/csrc/xpose.cu) built from
@@ -17,7 +21,9 @@ Phases, one JSON object per line; any failed check exits non-zero:
    call; and K1 at its other warp geometries (K1_GEOMETRIES, written from
    its source into build/k1_geometries). k1_ptxas: registers, shared
    memory and spills of K1, of its other geometries and of K4's level 4,
-   the first design of K1. k4_sass: K4's levels in
+   the first design of K1; the codec's range coder (host C++, the port's
+   own copy in compression/csrc) built with the host compiler, whose path
+   and version it prints. k4_sass: K4's levels in
    the SASS cuobjdump prints (skipped where the toolkit has none), so that
    the sinks are seen to keep every stage's work: the bounds' loads at
    level 0, the row gather's loads and staging stores from level 1 on, the
@@ -105,7 +111,20 @@ Phases, one JSON object per line; any failed check exits non-zero:
    where its copy is present, with the shuffles and global atomics of both
    designs counted from the pair counts; and k2_knockouts: K2 beside its
    knock-outs on the serve view (no reduce-scatter; no cull).
-6. k3_bound — K3, its plain version and torch.cumsum (the library call)
+6. codec — the train cell's final model encoded at full width
+   (encode_scene into a temporary directory, removed after), decoded
+   (decode_scene) and encoded again; the decoded scene served over the
+   serve cell's 32-view orbit (make_decoded_renderer → render_set, K1's
+   count set to 0 just before and read just after) and scored by
+   evaluate_images against the context eval render of the same cameras.
+   Checked, exactly: every decoded state (anchor, feat, scaling, offsets,
+   masks, hyper, level) equal to the encoder's, every stream consumed, the
+   second encode byte-identical, K1 launched once a view and within 2e-4
+   (mean 1e-6) of its plain version on each decoded view. Printed only:
+   bytes per stream against the model's estimate, anchors per level,
+   windows and escapes, encode and decode seconds, ms per view beside the
+   serve cell's, PSNR and SSIM, peak device memory.
+7. k3_bound — K3, its plain version and torch.cumsum (the library call)
    timed by CUDA events over back-to-back calls (K3 and torch.cumsum in
    turns, and by the host's clock per call), and K3 and torch.cumsum by the
    profiler's kernel time (with the device operations of a K3 call), on
@@ -114,14 +133,15 @@ Phases, one JSON object per line; any failed check exits non-zero:
    N(0,1) (the lane-major form of the reference's packed gradient prefix),
    each against its byte bound, and beside the previous K3 in turns where its
    copy is present.
-7. the kernel labs, each lab's counts set to 0 just before and read just
+8. the kernel labs, each lab's counts set to 0 just before and read just
    after: kvariants_lab (kvariants.run_all, K4's five levels on the lab's
    1x3600, 2x3600 and 8x450 tables), then k4_decompose per table (K1 timed
    on the same inputs, each level's bound, the plain versions on 1x3600)
    and k4_uneven_tiles (8x450 over 1x3600); xpose_lab (xpose_lab.run_all:
    K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
    the slab transpose's byte bound.
-8. the `kernels` line, then the card line from nvidia-smi, then the result.
+9. the `kernels` line (K1's launches: serve, train and codec), then the
+   card line from nvidia-smi, then the result.
 """
 
 import collections
@@ -133,7 +153,9 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -233,13 +255,27 @@ STAGE_COUNTS = {
     "expand_and_sort": lambda inst: (inst.demand, inst.n_vis)}
 
 
+# the phase running now and the last phase printed, for the failure line
+PROGRESS = {"phase": "start", "last_printed": None}
+
+
+class SmokeFailure(Exception):
+    """A check of this script that did not hold."""
+
+
 def emit(**obj):
+    PROGRESS["last_printed"] = obj.get("phase")
     print(json.dumps(obj), flush=True)
+
+
+def begin(phase):
+    """Name the phase that runs from here on."""
+    PROGRESS["phase"] = phase
 
 
 def check(ok, what):
     if not ok:
-        raise SystemExit(f"chip_smoke: FAILED: {what}")
+        raise SmokeFailure(f"chip_smoke: FAILED: {what}")
 
 
 def cuda_ms(fn, reps):
@@ -1534,6 +1570,148 @@ def kernel_labs(dev, k4_err, k56_err):
     return entries
 
 
+def same_files(dir_a, dir_b):
+    """The two directories hold the same file names with the same bytes."""
+    names = sorted(os.listdir(dir_a))
+    if names != sorted(os.listdir(dir_b)):
+        return False
+    for name in names:
+        with open(os.path.join(dir_a, name), "rb") as fa, \
+                open(os.path.join(dir_b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                return False
+    return True
+
+
+def streams_add_up(out_dir, meta):
+    """Each stream file's size is the sum of its lengths in meta.pkl."""
+    from contextgs_tpu_torch.compression.codec import STREAMS
+
+    def size(name):
+        return os.path.getsize(os.path.join(out_dir, name))
+
+    return (sum(meta["hyper_lens"]) == size("hyper.b")
+            and all(sum(ch[s][0] + ch[s][2] for ch in lv["chunks"])
+                    == size(f"{s}{lv['level']}.b")
+                    for lv in meta["levels"] for s in STREAMS))
+
+
+def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
+    """The codec on the train cell's final model at full width:
+    encode_scene → files → decode_scene → make_decoded_renderer →
+    render_set (K1) → evaluate_images. Checks the exact things: every
+    decoded state equal to the encoder's, every stream consumed, a second
+    encode byte-identical, K1 launched once a view of the decoded orbit and
+    within its tolerance of the plain version on every decoded view. Prints
+    the rest: bytes per stream against the model's estimate, anchors per
+    level, windows and escapes, encode and decode seconds, ms per view
+    beside the serve cell's, PSNR and SSIM against the context eval render
+    of the same cameras, peak device memory. Returns K1's launches."""
+    import pickle
+
+    from contextgs_tpu_torch.compression import codec
+    from contextgs_tpu_torch.evaluation import (evaluate_images,
+                                                make_decoded_renderer,
+                                                render_set)
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    mcfg = tcfg.model
+    p, b = ts.model.params, ts.model.buffers
+    args = (p, b, mcfg, ts.level_scales, ts.voxel_size)
+    opts = dict(disable_hyper=tcfg.opt.disable_hyper)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    root = tempfile.mkdtemp(prefix="contextgs_codec_")
+    try:
+        first, second = (os.path.join(root, n) for n in ("a", "b"))
+        stats = {}
+        t0 = time.perf_counter()
+        bits, states = codec.encode_scene(*args, first, return_states=True,
+                                          stream_stats=stats, **opts)
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = codec.decode_scene(first, mcfg)   # raises on an unread stream
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        equal = {k: bool(np.array_equal(getattr(dec, k).cpu().numpy(),
+                                        states[k]))
+                 for k in ("anchor", "feat", "scaling", "offsets", "masks",
+                           "hyper", "level")}
+        with open(os.path.join(first, "meta.pkl"), "rb") as f:
+            meta = pickle.load(f)
+        consumed = streams_add_up(first, meta)
+        files = {n: os.path.getsize(os.path.join(first, n))
+                 for n in sorted(os.listdir(first))}
+        t0 = time.perf_counter()
+        codec.encode_scene(*args, second, **opts)
+        encode2_s = time.perf_counter() - t0
+        identical = same_files(first, second)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del states
+
+    cams = scene.train_cameras
+    bg = np.zeros(3, np.float32)
+    render = make_decoded_renderer(dec, tcfg, W, H)
+    render(cams[0].as_device_dict(), bg)        # allocator warm-up
+    torch.cuda.synchronize()
+    view_ms = []
+    tile_kernel.launches = 0
+    renders, gts, fps = render_set(render, cams, bg, view_ms=view_ms)
+    torch.cuda.synchronize()
+    k1_launches = tile_kernel.launches
+    # K1 against its plain version on every decoded view, each rendered
+    # again with K1's inputs kept (these launches are not the main path's)
+    k1_views = [compare_k1(*render_keeping_k1(render, cam, bg))
+                for cam in cams]
+    k1_res = dict(
+        max_abs=max(v["max_abs"] for v in k1_views),
+        mean_abs=max(v["mean_abs"] for v in k1_views),
+        views_over_2e5=sum(v["pixels_over_2e5"] > 0 for v in k1_views),
+        last_contrib_mismatch=sum(v["last_contrib_mismatch"]
+                                  for v in k1_views),
+        finite=all(v["finite"] for v in k1_views))
+    bg_t = torch.zeros(3, device=dev)
+    evals = [eval_render(p, b, cam.as_device_dict(), bg_t) for cam in cams]
+    vs_eval = evaluate_images(renders, evals)
+    same_as_eval = all(torch.equal(r, e) for r, e in zip(renders, evals))
+    vs_targets = evaluate_images(renders, gts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    del renders, gts, evals, render
+
+    coded_mb = {k: bits[k] / 8 / 2 ** 20 for k in size_mb if k in bits}
+    timed = view_ms[WARMUP:]
+    emit(phase="codec", anchors=meta["n"],
+         anchors_per_level={lv["level"]: lv["count"]
+                            for lv in meta["levels"]},
+         level_scales=meta["level_scales"], file_bytes=files,
+         coded_mb=coded_mb, estimate_mb=size_mb,
+         coded_over_estimate={k: v / size_mb[k] if size_mb[k] else None
+                              for k, v in coded_mb.items()},
+         windows={k: dict(collections.Counter(v.pop("windows", [])))
+                  for k, v in stats.items()},
+         stream_stats=stats, encode_s=encode_s, decode_s=decode_s,
+         second_encode_s=encode2_s,
+         states_equal=equal, streams_consumed=consumed,
+         second_encode_identical=identical, views=len(cams),
+         k1_launches=k1_launches, ms_per_view=1e3 / fps,
+         view_ms_median=float(np.median(timed)),
+         serve_cell_ms_per_view=serve_ms, k1_check=k1_res,
+         renders_equal_context_eval=same_as_eval,
+         PSNR_vs_context_eval=None if same_as_eval else vs_eval["PSNR"],
+         SSIM_vs_context_eval=vs_eval["SSIM"],
+         PSNR_vs_targets=vs_targets["PSNR"],
+         SSIM_vs_targets=vs_targets["SSIM"], peak_mem_gib=peak_gib)
+    check(all(equal.values()), f"decoded states equal the encoder's: {equal}")
+    check(consumed, "every stream consumed in full")
+    check(identical, "a second encode writes byte-identical files")
+    check(k1_launches == len(cams),
+          "K1 launches on the decoded orbit != views")
+    check(k1_res["finite"] and k1_res["max_abs"] <= 2e-4
+          and k1_res["mean_abs"] <= 1e-6, "K1 on the decoded views")
+    return k1_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -1544,6 +1722,7 @@ def main() -> int:
     from contextgs_tpu_torch.evaluation import (evaluate_images,
                                                 make_decoded_renderer,
                                                 render_set)
+    from contextgs_tpu_torch.compression import coder
     from contextgs_tpu_torch.models import renderer as trenderer
     from contextgs_tpu_torch.models import state as tst
     from contextgs_tpu_torch.ops import cuda_build, scan
@@ -1554,6 +1733,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # ---- 1. device + build ----
+    begin("device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -1570,6 +1750,7 @@ def main() -> int:
                      + tuple(knockouts.values())
                      + tuple(geometry_sources.values()))
     build_s = time.perf_counter() - t0
+    coder.library()                      # the range coder, host C++
     k1_geometries = {name: k1_from(src)
                      for name, src in geometry_sources.items()}
 
@@ -1585,7 +1766,8 @@ def main() -> int:
          k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"),
          prev_sources=prev, k2_prev_ptxas=ptxas("blend_backward_prev"),
          k2_knockouts=sorted(knockouts), k1_geometry=geometry,
-         k1_other_geometries=sorted(geometry_sources))
+         k1_other_geometries=sorted(geometry_sources),
+         range_coder=coder.build_info)
     emit(phase="k1_ptxas", k1=ptxas_kernels("blend_forward"),
          v4_first_design={k: v for k, v in ptxas_kernels("kvariants").items()
                           if "ILi4E" in k},
@@ -1598,6 +1780,7 @@ def main() -> int:
         check_k4_sass(k4_sass, sass_summary(tile_kernel.SOURCE))
 
     # ---- 2. K1 against its plain version ----
+    begin("kernel_checks")
     for name, (rows, ids, bounds, w, h) in (list(golden_cases(dev))
                                             + list(cull_cases(dev))):
         res = compare_k1(rows, ids, bounds, w, h)
@@ -1647,6 +1830,7 @@ def main() -> int:
     del dec20, rows, ids, bounds
 
     # ---- 3. the main path: serve a 100k-anchor decoded scene ----
+    begin("serve")
     import contextgs_tpu_torch.ops.rasterize as trz
 
     dec = decoded_scene(100_000, 0, mcfg, dev)
@@ -1665,8 +1849,9 @@ def main() -> int:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = evaluate_images(renders, gts)
     timed = view_ms[WARMUP:]
+    serve_ms = 1e3 / fps
     emit(phase="serve", views=N_VIEWS, timed_views=len(timed), width=W,
-         height=H, anchors=100_000, ms_per_view=1e3 / fps, fps=fps,
+         height=H, anchors=100_000, ms_per_view=serve_ms, fps=fps,
          view_ms_median=float(np.median(timed)), view_ms_min=min(timed),
          view_ms_max=max(timed), k1_launches=k1_launches,
          k3_launches=k3_serve,
@@ -1796,11 +1981,13 @@ def main() -> int:
           and float(out.image.abs().sum()) > 1.0, "render_plain image")
 
     # ---- 4. the SSIM gradient in full float32 ----
+    begin("ssim_grad")
     res = ssim_grad(dev)
     emit(phase="ssim_grad", width=W, height=H, **res)
     check(res["rel_err"] <= 1e-5, "SSIM gradient on the card vs float64")
 
     # ---- 5. the main path of training ----
+    begin("train")
     import contextgs_tpu_torch.train.loop as tloop
     import contextgs_tpu_torch.train.step as tstep
 
@@ -1912,6 +2099,7 @@ def main() -> int:
             ts, tcfg, scene, dev, split[ph]["step_ms_median"], ph))
 
     # the context phase's eval render of the final state, twice; the size
+    begin("context_eval")
     run = tstep.make_eval_render(tcfg, W, H, "context", ts.level_scales,
                                  ts.voxel_size)
     cam = scene.train_cameras[0].as_device_dict()
@@ -1930,7 +2118,13 @@ def main() -> int:
           "context eval render finite and bit-identical")
     check(all(math.isfinite(v) and v >= 0 for v in size_mb.values())
           and size_mb["total"] > 0, "size estimate")
-    del ts, scene, dec, log, images
+    del images
+
+    # ---- 6. the codec: encode the trained model, decode, serve (K1) ----
+    begin("codec")
+    codec_k1 = codec_phase(ts, tcfg, scene, run, size_mb, serve_ms, dev)
+    begin("k1_k2_bounds")
+    del ts, scene, dec, log
 
     kept = k2_kept["args"]
     k2_res = compare_k2(*kept[:3], W, H, *kept[6:8], kept[10])
@@ -2008,7 +2202,8 @@ def main() -> int:
          **k2_knockouts(knockouts, serve_k2))
     del kept, rows, ids, bounds, serve_k2
 
-    # ---- 6. K3 timed against torch.cumsum and its byte bound ----
+    # ---- 7. K3 timed against torch.cumsum and its byte bound ----
+    begin("k3_bound")
     scan.launches = 0
     k3_prev = prev["k3"] if prev else None
     k3_times = dict(
@@ -2023,10 +2218,12 @@ def main() -> int:
              no_slower_than_library=res["k3_ms"] <= res["library_ms"])
     k3_main = k3_times["tile_counts"]
 
-    # ---- 7. the kernel labs: K4's stages of K1, K5 and K6 ----
+    # ---- 8. the kernel labs: K4's stages of K1, K5 and K6 ----
+    begin("kernel_labs")
     lab_kernels = kernel_labs(dev, k4_err, k56_err)
 
-    # ---- 8. kernels line, card line, result ----
+    # ---- 9. kernels line, card line, result ----
+    begin("result")
     def contract_label(bound):        # the kernels line says bytes or ops
         return "bytes" if bound["bound_by"] == "bytes" else "operations"
 
@@ -2034,8 +2231,9 @@ def main() -> int:
         dict(name="blend_forward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_forward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:317",
-             launches=k1_launches + train_k1,
-             launches_by_path=dict(serve=k1_launches, train=train_k1),
+             launches=k1_launches + train_k1 + codec_k1,
+             launches_by_path=dict(serve=k1_launches, train=train_k1,
+                                   codec=codec_k1),
              max_abs_err=k1_res["max_abs"], ms=k1_ms, plain_ms=plain_ms,
              bound_ms=k1_bound["bound_ms"],
              bound_by=contract_label(k1_bound),
@@ -2092,5 +2290,18 @@ def main() -> int:
     return 0
 
 
+def run() -> int:
+    """main(); where it raises (a failed check included), one JSON line
+    names the phase it was in and the message, and the exit code is 1."""
+    try:
+        return main()
+    except Exception as exc:     # the script's boundary: report, then fail
+        traceback.print_exc()
+        emit(phase="failed", failed_in=PROGRESS["phase"],
+             last_printed=PROGRESS["last_printed"],
+             error=f"{type(exc).__name__}: {exc}")
+        return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

@@ -63,14 +63,21 @@ ANCHOR_FIELDS = ("anchor", "anchor_feat", "hyper_latent", "offsets",
 
 def param_leaves(params: Params) -> dict:
     """Every optimized tensor by name, in a fixed order: the anchor fields,
-    then the MLPs' parameters as `mlps.<module path>`, then the prior's
-    tensors as `prior.<name>.<i>` (when present). The leaves share storage
+    then `net_leaves` of the MLPs and the prior. The leaves share storage
     with `params`, so writing into them updates the model."""
     leaves = {name: getattr(params, name) for name in ANCHOR_FIELDS}
-    for name, p in params.mlps.named_parameters():
-        leaves[f"mlps.{name}"] = p.data
-    if params.prior is not None:
-        for name, tensors in params.prior._asdict().items():
+    leaves.update(net_leaves(params.mlps, params.prior))
+    return leaves
+
+
+def net_leaves(mlps: DecoderMLPs, prior: FactorizedPrior | None) -> dict:
+    """The MLPs' parameters as `mlps.<module path>`, then the prior's tensors
+    as `prior.<name>.<i>` (when present): the order in which
+    `jax.tree.flatten(dict(mlps=..., prior=...))` lists the reference's
+    leaves (utils/checkpoint.save_pytree relies on it)."""
+    leaves = {f"mlps.{name}": p.data for name, p in mlps.named_parameters()}
+    if prior is not None:
+        for name, tensors in prior._asdict().items():
             for i, x in enumerate(tensors):
                 leaves[f"prior.{name}.{i}"] = x
     return leaves

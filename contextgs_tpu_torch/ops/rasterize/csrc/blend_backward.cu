@@ -89,6 +89,17 @@ constexpr float kMargin = 1.0f;
 // 18, 20 and 24, for components 0 to 8
 constexpr unsigned kLeaders = 0x01150515u;
 
+// power = -1/2 (a dx^2 + c dy^2) - b dx dy rounded as K1
+// (csrc/blend_forward.cu) and the plain version round it, each product and
+// sum on its own, so that the replay takes K1's alpha >= 1/255 decisions.
+__device__ __forceinline__ float gaussian_power(float dx, float dy, float a,
+                                                float b, float c) {
+  return __fsub_rn(
+      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
+                                 __fmul_rn(__fmul_rn(c, dy), dy))),
+      __fmul_rn(__fmul_rn(b, dx), dy));
+}
+
 // The box (x lo, x hi, y lo, y hi) of the pixels a splat may blend with
 // alpha >= 1/255, and tau: a copy of ops/rasterize/common.py::
 // alpha_footprint in the same float32 arithmetic. An empty box for an
@@ -234,8 +245,7 @@ blend_backward_kernel(const float* __restrict__ rows,
           const float dx = s_xy[j].x - fx;
           const float dy = s_xy[j].y - fy;
           const float4 co = s_conic_op[j];
-          const float power =
-              -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
+          const float power = gaussian_power(dx, dy, co.x, co.y, co.z);
           if (power <= 0.0f && !(power < s_ntau[j])) {
             const float gauss = expf(power);
             const float raw = co.w * gauss;

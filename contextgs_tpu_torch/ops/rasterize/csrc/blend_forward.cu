@@ -13,8 +13,8 @@
 //
 // What bounds it. The result needs only the pairs whose alpha reaches 1/255
 // (22% of a full-width serve view's listed (pixel, instance) pairs): their
-// power, exp and blend. The first design (kept, instruction for
-// instruction, as level 4 of scripts/csrc/kvariants.cu) walked every listed
+// power, exp and blend. The first design (kept as level 4 of
+// scripts/csrc/kvariants.cu, its power rounded as here) walked every listed
 // pair with every pixel of the tile, so it was held by the instruction rate
 // of the walked pairs' power and exp (about 2.3 pairs an SM a clock against
 // 16 exps), at 4.5% of the needed pairs' bound.
@@ -49,8 +49,8 @@
 //
 // What must not change. Every pair culled is one the first design skipped
 // (alpha < 1/255: it went on without touching T), each pixel runs the same
-// float32 expressions on the same instances in the same order (plain expf,
-// no fast math), and last_contrib is the list position (1-based) of the
+// float32 expressions on the same instances in the same order (the power
+// rounded op by op, plain expf, no fast math), and last_contrib is the list position (1-based) of the
 // last instance blended, taken from the position and not from a count of
 // instances walked. So rgb, final_T and last_contrib equal the first
 // design's bit for bit; chip_smoke.py holds them equal to K4's level 4.
@@ -89,6 +89,21 @@ constexpr int kWarpCols = kTile / kWarpW;
 // blocks an SM keeps: 2048 threads, as many as the first design kept
 constexpr int kMinBlocks = 2048 / kThreads;
 static_assert(kWarps <= 8, "a warp mask is one byte");
+
+// power = -1/2 (a dx^2 + c dy^2) - b dx dy in the plain version's order,
+// each product and sum rounded on its own (ops/rasterize/common.py::
+// gaussian_power, one torch op at a time). Written as it reads, nvcc
+// contracts it into FMAs, and a power an ulp apart flips alpha >= 1/255
+// against the plain version: a pixel of a trained scene then moved by up to
+// alpha·T (1.8e-3 on an H100). In this form alpha equals the plain
+// version's.
+__device__ __forceinline__ float gaussian_power(float dx, float dy, float a,
+                                                float b, float c) {
+  return __fsub_rn(
+      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
+                                 __fmul_rn(__fmul_rn(c, dy), dy))),
+      __fmul_rn(__fmul_rn(b, dx), dy));
+}
 
 // The box (x lo, x hi, y lo, y hi) of the pixels a splat may blend with
 // alpha >= 1/255, and tau: a copy of ops/rasterize/common.py::
@@ -224,8 +239,7 @@ blend_forward_kernel(const float* __restrict__ rows,
         if (done[k]) continue;
         const float dx = at.x - fx[k];
         const float dy = at.y - fy[k];
-        const float power =
-            -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
+        const float power = gaussian_power(dx, dy, co.x, co.y, co.z);
         if (power > 0.0f || power < at.z) continue;
         const float alpha = fminf(kMaxAlpha, at.w * expf(power));
         if (alpha < kAlphaEps) continue;

@@ -46,6 +46,17 @@ constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kMaxAlpha = 0.99f;
 constexpr float kSink = 1e-30f;
 
+// power = -1/2 (a dx^2 + c dy^2) - b dx dy rounded as K1
+// (ops/rasterize/csrc/blend_forward.cu) rounds it, each product and sum on
+// its own, so that level 4 stays bit-equal to K1.
+__device__ __forceinline__ float gaussian_power(float dx, float dy, float a,
+                                                float b, float c) {
+  return __fsub_rn(
+      __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
+                                 __fmul_rn(__fmul_rn(c, dy), dy))),
+      __fmul_rn(__fmul_rn(b, dx), dy));
+}
+
 template <int Level>
 __global__ void __launch_bounds__(kPix)
 blend_variant_kernel(const float* __restrict__ rows,
@@ -118,8 +129,7 @@ blend_variant_kernel(const float* __restrict__ rows,
           const float dx = s_xy[j].x - fx;
           const float dy = s_xy[j].y - fy;
           const float4 co = s_conic_op[j];
-          const float power =
-              -0.5f * (co.x * dx * dx + co.z * dy * dy) - co.y * dx * dy;
+          const float power = gaussian_power(dx, dy, co.x, co.y, co.z);
           if (power > 0.0f) continue;
           const float alpha = fminf(kMaxAlpha, co.w * expf(power));
           if (alpha < kAlphaEps) continue;

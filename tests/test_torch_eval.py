@@ -21,6 +21,7 @@ from contextgs_tpu.ops import ssim as jssim
 from contextgs_tpu_torch import config as tcfg
 from contextgs_tpu_torch import convert
 from contextgs_tpu_torch import evaluation as teval
+from contextgs_tpu_torch.compression import codec as tcodec
 from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import ssim as tssim
 from contextgs_tpu_torch.scene.cameras import Camera as TCamera
@@ -140,7 +141,8 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     assert {"entropy.py", "context.py", "levels.py", "scan.py",
-            "kvariants.py", "xpose_lab.py"} <= {path.name for path in files}
+            "kvariants.py", "xpose_lab.py", "codec.py",
+            "coder.py"} <= {path.name for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):
@@ -166,6 +168,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: tst.init_scene_model(pts, cfg_t.model),
         lambda: convert.decoded_scene_from_numpy(dec_np, cfg_t.model),
         lambda: convert.mlps_from_numpy(dec_np.mlps, cfg_t.model),
+        lambda: tcodec.decode_scene("no_such_dir", cfg_t.model, device=None),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
 (the lane prefix sum), K4 (the forward's five stages) and K5/K6 (the slab
-transposes) against their plain versions.
+transposes) against their plain versions, and the codec's round trip on the
+card.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -10,12 +11,16 @@ the GPU machine, which has no JAX:
 Tests marked `cuda` skip without a card.
 """
 
+import os
 import re
 
 import numpy as np
 import pytest
 import torch
 
+from contextgs_tpu_torch.compression import codec as tcodec
+from contextgs_tpu_torch.config import ModelConfig
+from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops import scan as tscan
 from contextgs_tpu_torch.ops.rasterize import reference as tref
@@ -862,3 +867,62 @@ def test_transpose_slab_kernel_matches_plain_version(variant, nc):
     torch.cuda.synchronize()
     assert txl.launches[variant] == before[variant] + 1
     assert torch.equal(got, txl.transpose_slabs_reference(x))
+
+
+def _card_model(n_pts=400):
+    """A small seeded model on the card with non-trivial content (a few
+    masks off), and its voxel size."""
+    cfg = ModelConfig(feat_dim=8, n_offsets=4, level_num=3, voxel_size=0.05)
+    rng = np.random.default_rng(3)
+    model, voxel = tst.init_scene_model(
+        rng.uniform(-1, 1, (n_pts, 3)), cfg,
+        generator=torch.Generator().manual_seed(3), device="cuda")
+    p = model.params
+
+    def draw(x, s):
+        return torch.from_numpy((rng.normal(size=tuple(x.shape)) * s).astype(
+            np.float32)).cuda()
+
+    p = p._replace(anchor_feat=draw(p.anchor_feat, 2.0),
+                   hyper_latent=draw(p.hyper_latent, 2.0),
+                   offsets=draw(p.offsets, 0.3),
+                   mask_logit=torch.from_numpy(np.where(
+                       rng.random(tuple(p.mask_logit.shape)) < 0.15, -8.0,
+                       1.0).astype(np.float32)).cuda())
+    return cfg, p, model.buffers, voxel
+
+
+@pytest.mark.cuda
+def test_codec_round_trip_on_card(tmp_path):
+    """encode∘decode on the card reproduces the encoder's states exactly,
+    and the decoded scene lies on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    cfg, p, b, voxel = _card_model()
+    _, states = tcodec.encode_scene(p, b, cfg, [4.0, 16.0], voxel,
+                                   str(tmp_path), return_states=True)
+    dec = tcodec.decode_scene(str(tmp_path), cfg)
+    for name in ("anchor", "feat", "scaling", "offsets", "masks", "hyper",
+                 "level"):
+        got = getattr(dec, name)
+        assert got.is_cuda, name
+        np.testing.assert_array_equal(got.cpu().numpy(), states[name],
+                                      err_msg=name)
+
+
+@pytest.mark.cuda
+def test_codec_second_encode_identical_on_card(tmp_path):
+    """A second encode of the same model on the card writes the same
+    bytes, file for file."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    cfg, p, b, voxel = _card_model()
+    dirs = [str(tmp_path / name) for name in ("a", "b")]
+    for d in dirs:
+        tcodec.encode_scene(p, b, cfg, [4.0, 16.0], voxel, d)
+    names = sorted(os.listdir(dirs[0]))
+    assert names == sorted(os.listdir(dirs[1])) and "mlp.pkl" in names
+    for name in names:
+        with open(os.path.join(dirs[0], name), "rb") as fa, \
+                open(os.path.join(dirs[1], name), "rb") as fb:
+            assert fa.read() == fb.read(), name

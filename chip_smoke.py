@@ -28,7 +28,9 @@ after every phase has held.
    the sinks are seen to keep every stage's work: the bounds' loads at
    level 0, the row gather's loads and staging stores from level 1 on, the
    exp from level 2 on only, and a walk that grows from level 2 to 4; K1's
-   own counts beside level 4's, not checked.
+   own counts beside level 4's, not checked. Whether PIL and torchvision
+   import, asked of a fresh interpreter (nothing on the port's path
+   imports either).
 2. k1_check — K1 against its plain PyTorch version on the card: golden small
    cases and the cull cases below (2e-5), then a 1280x720 view of a
    20k-anchor decoded scene (max
@@ -124,6 +126,39 @@ after every phase has held.
    bytes per stream against the model's estimate, anchors per level,
    windows and escapes, encode and decode seconds, ms per view beside the
    serve cell's, PSNR and SSIM, peak device memory.
+6b. drivers — the port's drivers from disk, in a temporary directory
+   removed after, with the settings of DRIVER_SCENE and DRIVER_SCHEDULE:
+   scripts/make_synth_scene.main (512x512, 48 orbit views of 80k ground
+   truth gaussians rendered by K1, 20k SfM points, so about 20k initial
+   anchors at ModelConfig() widths), drivers.train.main (600 steps: plain
+   to 200, noise to 400, context to 600, densify every 100 from 100 to
+   500; the PLY snapshot and the checkpoint at 600; encode → decode →
+   render the 6 test views → results.json), drivers.decompress.main and
+   drivers.test.main (the newest checkpoint, encoded again), then the
+   snapshot read back with load_model_ply and load_networks, and
+   drivers.bench.main (30 chained forward+backward rasterizations of 200k
+   gaussians at 1280x720 after 2 warm-up ones). K1's and K2's counts are
+   set to 0 before the script and each driver and read after. Checked,
+   exactly: K1 once a view in make_synth_scene; K2 once a training step
+   and K1 once a step, once an eval view and once a decoded view; K1 once
+   a test view in decompress and test; K1 and K2 once a bench iteration;
+   "decoded" and "ours_from_ckpt" equal to "ours" (PSNR, SSIM; size_MB);
+   the test driver's bitstreams byte-identical to train's; the snapshot
+   equal to the loaded checkpoint's alive rows and networks, and that
+   checkpoint to the final state; no jax and no PIL module imported;
+   results.json finite with LPIPS null and LPIPS_skipped set. Within
+   tolerance, on the inputs the drivers gave the kernels (kept by wrappers
+   during the runs, compared after them): K1 within 2e-4 (mean 1e-6) of
+   its plain version on the synthetic scene's last view, the train
+   driver's last step, its 6 eval views and its 6 decoded test views, and
+   the bench's last iteration; K2 inside the plain envelope on the train
+   driver's last step and the bench's last iteration. The decoded test
+   PSNR above 15 dB (a gate a broken chain fails, not a quality target).
+   Printed: anchors, ms a step per phase (median, with a synchronize at
+   each step), encode and decode seconds, coded MB against the model's
+   estimate, ms a view of the decoded scene over all 48 views (the first
+   5 left out), each driver's and the phase's seconds, and the bench's
+   line.
 7. k3_bound — K3, its plain version and torch.cumsum (the library call)
    timed by CUDA events over back-to-back calls (K3 and torch.cumsum in
    turns, and by the host's clock per call), and K3 and torch.cumsum by the
@@ -140,12 +175,14 @@ after every phase has held.
    and k4_uneven_tiles (8x450 over 1x3600); xpose_lab (xpose_lab.run_all:
    K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
    the slab transpose's byte bound.
-9. the `kernels` line (K1's launches: serve, train and codec), then the
-   card line from nvidia-smi, then the result.
+9. the `kernels` line (K1's launches: serve, train, codec,
+   make_synth_scene, drivers and bench; K2's: train, drivers and bench),
+   then the card line from nvidia-smi, then the result.
 """
 
 import collections
 import contextlib
+import io
 import json
 import math
 import os
@@ -1711,6 +1748,301 @@ def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
           and k1_res["mean_abs"] <= 1e-6, "K1 on the decoded views")
     return k1_launches
 
+# the drivers phase: the synthetic scene (512x512, ModelConfig widths) at a
+# size whose initial anchors come to about 20k, cut so that the codec's host
+# CDF build stays within the time limit, and a cut training schedule
+DRIVER_VIEWS = 48
+DRIVER_TEST_VIEWS = DRIVER_VIEWS // 8      # every 8th view
+DRIVER_SCENE = ["--res", "512", "--cams", str(DRIVER_VIEWS), "--gauss",
+                "80000", "--points", "20000"]
+DRIVER_STEPS = 600
+DRIVER_SCHEDULE = ["--iterations", str(DRIVER_STEPS), "--noise_from", "200",
+                   "--context_from", "400", "--start_stat", "50",
+                   "--update_from", "100", "--update_interval", "100",
+                   "--update_until", "500", "--checkpoint_iterations",
+                   str(DRIVER_STEPS)]
+DRIVER_PHASES = dict(plain=(2, 200), noise=(201, 400), context=(401, 600))
+
+
+def module_imports(name):
+    """Whether `import name` succeeds, asked of a fresh interpreter so that
+    this process imports nothing."""
+    return subprocess.run([sys.executable, "-c", f"import {name}"],
+                          capture_output=True, timeout=300).returncode == 0
+
+
+def keep_output(store):
+    """Wrapper that keeps the output of the last call in `store`."""
+    def wrap(fn):
+        def call(*args, **kw):
+            store["out"] = fn(*args, **kw)
+            return store["out"]
+        return call
+    return wrap
+
+
+def drivers_phase(dev):
+    """The port's drivers from disk, in a temporary directory removed
+    after: make_synth_scene → drivers.train (600 steps of all three phases,
+    the PLY snapshot and the checkpoint, encode → decode → render the test
+    split) → drivers.decompress → drivers.test → the snapshot read back →
+    drivers.bench. Checks the exact things: K1's and K2's launches per
+    driver, "decoded" and "ours_from_ckpt" equal to "ours", the test
+    driver's bitstreams byte-identical to train's, the snapshot equal to
+    the checkpoint's alive rows and networks, no jax and no PIL module
+    imported. Returns K1's and K2's launches by path."""
+    import contextgs_tpu_torch.ops.rasterize as trz
+    from contextgs_tpu_torch.drivers import bench, decompress
+    from contextgs_tpu_torch.drivers import test as test_driver
+    from contextgs_tpu_torch.drivers import train as train_driver
+    from contextgs_tpu_torch.evaluation import (make_decoded_renderer,
+                                                render_set)
+    from contextgs_tpu_torch.models import state as tst
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+    from contextgs_tpu_torch.scene import snapshot
+    from contextgs_tpu_torch.scripts import make_synth_scene
+    from contextgs_tpu_torch.train import loop as tloop
+
+    t_phase = time.perf_counter()
+    os.environ.pop("CONTEXTGS_LPIPS_WEIGHTS", None)   # LPIPS stays gated
+    seconds, steps, kept = {}, [], {}
+    # K1's and K2's inputs as the drivers gave them, held against the plain
+    # versions after the drivers ran: the synthetic scene's last view; the
+    # train driver's last 1 + 2 x 6 K1 calls (the last step, the eval
+    # views, the decoded test views) and its last K2 call (the last step);
+    # the bench's last iteration
+    synth_k1, train_k2_in, bench_k1, bench_k2, decoded = {}, {}, {}, {}, {}
+    train_k1_in = collections.deque(maxlen=1 + 2 * DRIVER_TEST_VIEWS)
+
+    def keep_recent(fn):
+        def call(*args):
+            train_k1_in.append(args)
+            return fn(*args)
+        return call
+
+    def counts():
+        return tile_kernel.launches, tile_kernel.backward_launches
+
+    def zero():
+        tile_kernel.launches = tile_kernel.backward_launches = 0
+
+    def timing_train(fn):
+        def call(cfg, scene, *, device=None, callback=None):
+            def cb(it, ts, metrics):
+                torch.cuda.synchronize()
+                steps.append((it, time.perf_counter()))
+                callback(it, ts, metrics)
+            kept.update(cfg=cfg, scene=scene)
+            kept["ts"] = fn(cfg, scene, device=device, callback=cb)
+            return kept["ts"]
+        return call
+
+    def timing(name):
+        def wrap(fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                seconds.setdefault(name, []).append(time.perf_counter() - t0)
+                return out
+            return call
+        return wrap
+
+    root = tempfile.mkdtemp(prefix="contextgs_drivers_")
+    try:
+        scene_dir = os.path.join(root, "scene")
+        model = os.path.join(root, "model")
+        zero()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr), \
+                wrapped(trz, "blend_forward", keep_args(synth_k1)):
+            check(make_synth_scene.main(["--out", scene_dir, *DRIVER_SCENE])
+                  == 0, "make_synth_scene")
+        seconds["make_synth_scene"] = time.perf_counter() - t0
+        k1_synth, k2_synth = counts()
+
+        zero()
+        t0 = time.perf_counter()
+        with wrapped(train_driver, "train", timing_train), \
+                wrapped(train_driver, "encode_scene", timing("encode")), \
+                wrapped(train_driver, "decode_scene", timing("decode")), \
+                wrapped(trz, "blend_forward", keep_recent), \
+                wrapped(trz, "blend_backward", keep_args(train_k2_in)):
+            check(train_driver.main(["-s", scene_dir, "-m", model,
+                                     *DRIVER_SCHEDULE]) == 0,
+                  "drivers.train")
+        seconds["train_driver"] = time.perf_counter() - t0
+        k1_train, k2_train = counts()
+        modules = dict(jax="jax" in sys.modules, PIL="PIL" in sys.modules)
+        ts, scene = kept["ts"], kept["scene"]
+        n_test = len(scene.test_cameras)
+        voxel = kept["cfg"].model.voxel_size
+        init_anchors = len(tst.voxelize_points(scene.points, voxel))
+        estimate_mb = tloop.estimate_bits(ts.model, kept["cfg"], ts)
+        train_bits = os.path.join(root, "bitstreams_train")
+        shutil.copytree(os.path.join(model, "bitstreams"), train_bits)
+
+        zero()
+        t0 = time.perf_counter()
+        with wrapped(decompress, "decode_scene", timing("decode")), \
+                wrapped(decompress, "decode_scene", keep_output(decoded)):
+            check(decompress.main(["-s", scene_dir, "-m", model]) == 0,
+                  "drivers.decompress")
+        seconds["decompress_driver"] = time.perf_counter() - t0
+        k1_decompress, k2_decompress = counts()
+
+        zero()
+        loaded = {}
+        t0 = time.perf_counter()
+        with wrapped(test_driver, "load_checkpoint", keep_output(loaded)), \
+                wrapped(test_driver, "encode_scene", timing("encode")), \
+                wrapped(test_driver, "decode_scene", timing("decode")):
+            check(test_driver.main(["-s", scene_dir, "-m", model]) == 0,
+                  "drivers.test")
+        seconds["test_driver"] = time.perf_counter() - t0
+        k1_test, k2_test = counts()
+        identical = same_files(train_bits, os.path.join(model, "bitstreams"))
+        with open(os.path.join(model, "results.json")) as f:
+            results = json.load(f)
+
+        # the snapshot against the checkpoint the test driver loaded
+        params, buffers = loaded["out"][:2]
+        pc = os.path.join(model, "point_cloud", f"iteration_{DRIVER_STEPS}")
+        snap = snapshot.load_model_ply(os.path.join(pc, "point_cloud.ply"),
+                                       kept["cfg"].model,
+                                       tst.SceneModel(params, buffers))
+        alive = buffers.alive
+        n = int(alive.sum())
+        snap_equal = {f: bool(torch.equal(getattr(snap.params, f)[:n],
+                                          getattr(params, f)[alive]))
+                      for f in tst.ANCHOR_FIELDS}
+        snap_equal["n_alive"] = int(snap.buffers.alive.sum()) == n
+        mlps, prior, extra = snapshot.load_networks(
+            os.path.join(pc, "checkpoint.pth"), kept["cfg"].model, dev)
+        snap_equal["networks"] = all(
+            torch.equal(a, b) for a, b in zip(
+                tst.net_leaves(mlps, prior).values(),
+                tst.net_leaves(params.mlps, params.prior).values()))
+        snap_equal["checkpoint_is_final_state"] = bool(
+            n == tst.n_alive(ts.model) and torch.equal(
+                params.anchor_feat[alive],
+                ts.model.params.anchor_feat[ts.model.buffers.alive]))
+
+        # ms a view: the decoded scene over all the scene's views, the
+        # first WARMUP left out (these K1 launches are no driver's)
+        cams = scene.train_cameras + scene.test_cameras
+        render = make_decoded_renderer(decoded["out"], kept["cfg"],
+                                       cams[0].width, cams[0].height,
+                                       device=dev)
+        view_ms = []
+        render_set(render, cams, np.zeros(3, np.float32), view_ms=view_ms)
+        del render, decoded["out"]
+
+        zero()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), \
+                wrapped(trz, "blend_forward", keep_args(bench_k1)), \
+                wrapped(trz, "blend_backward", keep_args(bench_k2)):
+            check(bench.main([]) == 0, "drivers.bench")
+        seconds["bench"] = time.perf_counter() - t0
+        k1_bench, k2_bench = counts()
+        bench_line = json.loads(out.getvalue().strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # K1 and K2 against their plain versions on the drivers' inputs (these
+    # launches are not the main path's)
+    k1_inputs = dict(synth_last_view=synth_k1["args"],
+                     bench_last_iteration=bench_k1["args"])
+    for i, args in enumerate(train_k1_in):
+        name = ("train_last_step" if i == 0 else
+                f"train_eval_view{i}" if i <= DRIVER_TEST_VIEWS else
+                f"train_decoded_view{i - DRIVER_TEST_VIEWS}")
+        k1_inputs[name] = args
+    with torch.no_grad():
+        k1_check = {name: compare_k1(*args)
+                    for name, args in k1_inputs.items()}
+        del k1_inputs, train_k1_in, synth_k1, bench_k1
+        k2_check = {}
+        for name, store in (("train_last_step", train_k2_in),
+                            ("bench_last_iteration", bench_k2)):
+            a = store.pop("args")
+            k2_check[name] = compare_k2(*a[:3], a[8], a[9], *a[6:8], a[10])
+            del a
+
+    times = dict(steps)
+    step_ms = {ph: float(np.median([(times[i] - times[i - 1]) * 1e3
+                                    for i in range(a, b + 1)]))
+               for ph, (a, b) in DRIVER_PHASES.items()}
+    ours, decoded = results["ours"], results["decoded"]
+    from_ckpt = results["ours_from_ckpt"]
+    coded_mb = {k: v / 8 / 2 ** 20
+                for k, v in ours["size_breakdown_bits"].items()
+                if k in estimate_mb}
+    want_k1_train = DRIVER_STEPS + 2 * n_test   # steps, eval, decoded views
+    seconds["phase"] = time.perf_counter() - t_phase
+    emit(phase="drivers", initial_anchors=init_anchors,
+         final_anchors=tst.n_alive(ts.model),
+         train_views=len(scene.train_cameras), test_views=n_test,
+         step_ms_median=step_ms, ours=ours, decoded=decoded,
+         ours_from_ckpt=from_ckpt, coded_mb=coded_mb,
+         estimate_mb=estimate_mb,
+         coded_over_estimate={k: v / estimate_mb[k] if estimate_mb[k]
+                              else None for k, v in coded_mb.items()},
+         ms_per_view_decoded=dict(
+             views=len(view_ms) - WARMUP,
+             median=float(np.median(view_ms[WARMUP:])),
+             mean=float(np.mean(view_ms[WARMUP:])),
+             least=min(view_ms[WARMUP:]), most=max(view_ms[WARMUP:])),
+         seconds=seconds,
+         k1_launches=dict(make_synth_scene=k1_synth, train=k1_train,
+                          decompress=k1_decompress, test=k1_test),
+         k2_launches=dict(train=k2_train, decompress=k2_decompress,
+                          test=k2_test),
+         bitstreams_identical=identical, snapshot_equal=snap_equal,
+         modules_imported=modules)
+    emit(phase="bench", **bench_line, k1_launches=k1_bench,
+         k2_launches=k2_bench)
+    emit(phase="drivers_k1_check", **k1_check)
+    for name, res in k2_check.items():
+        check_k2(f"drivers_{name}", res)
+    check(len(k1_check) == 2 + 1 + 2 * DRIVER_TEST_VIEWS
+          and all(r["finite"] and r["max_abs"] <= 2e-4
+                  and r["mean_abs"] <= 1e-6 for r in k1_check.values()),
+          "K1 on the drivers' inputs")
+    check(k1_synth == DRIVER_VIEWS and k2_synth == 0,
+          "make_synth_scene: K1 once a view")
+    check(n_test == DRIVER_TEST_VIEWS, "the drivers scene's test split")
+    check(k2_train == DRIVER_STEPS, "K2 once a training step")
+    check(k1_train == want_k1_train,
+          f"K1 {k1_train} != {DRIVER_STEPS} steps + 2 x {n_test} test views")
+    check(k1_decompress == n_test and k2_decompress == 0,
+          "decompress: K1 once a test view")
+    check(k1_test == n_test and k2_test == 0, "test: K1 once a test view")
+    check(decoded["PSNR"] == ours["PSNR"] and decoded["SSIM"] == ours["SSIM"],
+          "decompress's PSNR and SSIM equal train's")
+    check(identical, "the test driver's bitstreams equal train's")
+    check(all(from_ckpt[k] == ours[k] for k in ("PSNR", "SSIM", "size_MB")),
+          "ours_from_ckpt equals ours")
+    check(all(snap_equal.values()), f"snapshot: {snap_equal}")
+    check(not any(modules.values()), f"modules imported: {modules}")
+    for name, entry in results.items():
+        check(all(math.isfinite(entry[k]) for k in ("PSNR", "SSIM", "FPS"))
+              and entry["LPIPS"] is None and entry.get("LPIPS_skipped"),
+              f"results.json {name}")
+    check(math.isfinite(ours["size_MB"]) and ours["size_MB"] > 0,
+          "results.json size_MB")
+    check(decoded["PSNR"] > 15.0, "decoded test PSNR above 15 dB")
+    iters = bench.WARMUP + bench.CARD["iters"]
+    check(k1_bench == iters and k2_bench == iters,
+          "bench: K1 and K2 once an iteration")
+    check(bench_line["value"] > 0, "bench throughput")
+    return (dict(make_synth_scene=k1_synth,
+                 drivers=k1_train + k1_decompress + k1_test,
+                 bench=k1_bench),
+            dict(drivers=k2_train, bench=k2_bench))
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1767,7 +2099,9 @@ def main() -> int:
          prev_sources=prev, k2_prev_ptxas=ptxas("blend_backward_prev"),
          k2_knockouts=sorted(knockouts), k1_geometry=geometry,
          k1_other_geometries=sorted(geometry_sources),
-         range_coder=coder.build_info)
+         range_coder=coder.build_info,
+         pil_imports=module_imports("PIL"),
+         torchvision_imports=module_imports("torchvision"))
     emit(phase="k1_ptxas", k1=ptxas_kernels("blend_forward"),
          v4_first_design={k: v for k, v in ptxas_kernels("kvariants").items()
                           if "ILi4E" in k},
@@ -2123,8 +2457,12 @@ def main() -> int:
     # ---- 6. the codec: encode the trained model, decode, serve (K1) ----
     begin("codec")
     codec_k1 = codec_phase(ts, tcfg, scene, run, size_mb, serve_ms, dev)
-    begin("k1_k2_bounds")
     del ts, scene, dec, log
+
+    # ---- 6b. the drivers from disk, and the rasterizer bench ----
+    begin("drivers")
+    drivers_k1, drivers_k2 = drivers_phase(dev)
+    begin("k1_k2_bounds")
 
     kept = k2_kept["args"]
     k2_res = compare_k2(*kept[:3], W, H, *kept[6:8], kept[10])
@@ -2231,9 +2569,10 @@ def main() -> int:
         dict(name="blend_forward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_forward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:317",
-             launches=k1_launches + train_k1 + codec_k1,
+             launches=(k1_launches + train_k1 + codec_k1
+                       + sum(drivers_k1.values())),
              launches_by_path=dict(serve=k1_launches, train=train_k1,
-                                   codec=codec_k1),
+                                   codec=codec_k1, **drivers_k1),
              max_abs_err=k1_res["max_abs"], ms=k1_ms, plain_ms=plain_ms,
              bound_ms=k1_bound["bound_ms"],
              bound_by=contract_label(k1_bound),
@@ -2251,7 +2590,8 @@ def main() -> int:
         dict(name="blend_backward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_backward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:548",
-             launches=train_k2, launches_by_path=dict(train=train_k2),
+             launches=train_k2 + sum(drivers_k2.values()),
+             launches_by_path=dict(train=train_k2, **drivers_k2),
              max_abs_err=k2_res["max_abs"], ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=k2_bound["bound_ms"],
              bound_by=contract_label(k2_bound),

@@ -147,6 +147,11 @@ class OptimizationConfig:
     disable_hyper: bool = False    # zero the hyper latent (ref train.py:616)
 
 
+# why the port refuses the JAX package's `--budget` flag (drivers, scripts)
+NO_BUDGET = ("the port's tile-instance lists are sized per render, so it has "
+             "no instance budget")
+
+
 @dataclass(frozen=True)
 class PipelineConfig:
     """Renderer / execution options (ref arguments/__init__.py:76-81 + TPU knobs)."""

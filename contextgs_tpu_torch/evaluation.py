@@ -23,10 +23,13 @@ from contextgs_tpu_torch.device import resolve_device
 from contextgs_tpu_torch.models.decode import decode_neural_gaussians
 from contextgs_tpu_torch.models.renderer import camera_tensors
 from contextgs_tpu_torch.ops import rasterize as rz
+from contextgs_tpu_torch.ops.lpips import (load_weights as load_lpips_weights,
+                                           lpips as lpips_fn)
 from contextgs_tpu_torch.ops.ssim import psnr as psnr_fn, ssim as ssim_fn
+from contextgs_tpu_torch.utils import png
 
-LPIPS_SKIPPED = ("LPIPS is not ported: no VGG weights exist in the repository "
-                 "(the reference gates it the same way)")
+LPIPS_SKIPPED = ("no VGG weights: set CONTEXTGS_LPIPS_WEIGHTS to an exported "
+                 ".npz (see ops/lpips.py)")
 
 
 class _DecodedParams(NamedTuple):
@@ -76,18 +79,25 @@ def make_decoded_renderer(dec: DecodedScene, cfg: TrainConfig, width: int,
 
 
 def evaluate_images(renders: list, gts: list, device=None) -> dict:
-    """PSNR/SSIM over [3,H,W] images (tensors or numpy) on `device`. LPIPS
-    stays gated and is reported as None."""
+    """PSNR/SSIM/LPIPS over [3,H,W] images (tensors or numpy) on `device`.
+    LPIPS needs VGG weights (CONTEXTGS_LPIPS_WEIGHTS, see ops/lpips.py);
+    without them it is None and `LPIPS_skipped` says why."""
     dev = resolve_device(device)
-    psnrs, ssims = [], []
+    lw = load_lpips_weights(device=dev)
+    psnrs, ssims, lpipss = [], [], []
     for r, g in zip(renders, gts):
         r = torch.clamp(torch.as_tensor(r, device=dev), 0, 1)
         g = torch.as_tensor(g, device=dev)
         psnrs.append(float(psnr_fn(r, g)))
         ssims.append(float(ssim_fn(r, g)))
-    return dict(PSNR=float(np.mean(psnrs)), SSIM=float(np.mean(ssims)),
-                per_view=dict(PSNR=psnrs, SSIM=ssims, LPIPS=[]),
-                LPIPS=None, LPIPS_skipped=LPIPS_SKIPPED)
+        if lw is not None:
+            lpipss.append(float(lpips_fn(lw, r, g)))
+    out = dict(PSNR=float(np.mean(psnrs)), SSIM=float(np.mean(ssims)),
+               per_view=dict(PSNR=psnrs, SSIM=ssims, LPIPS=lpipss),
+               LPIPS=float(np.mean(lpipss)) if lpipss else None)
+    if lw is None:
+        out["LPIPS_skipped"] = LPIPS_SKIPPED
+    return out
 
 
 def render_set(render_fn, cameras, bg, out_dir: Optional[str] = None,
@@ -124,21 +134,20 @@ def render_set(render_fn, cameras, bg, out_dir: Optional[str] = None,
     timed = times[5:] if len(times) > 5 else times
     fps = len(timed) / max(sum(timed) / 1e3, 1e-9)
     if out_dir and save_images:
-        from PIL import Image
-
         for sub in ("renders", "gt", "errors"):
             os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
 
-        def to_img(x):
-            return Image.fromarray(
-                (np.clip(x, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8))
+        def save(x, sub, i):
+            # truncation to uint8, as the reference's astype
+            png.write_png(os.path.join(out_dir, sub, f"{i:05d}.png"),
+                          (np.clip(x, 0, 1).transpose(1, 2, 0) * 255)
+                          .astype(np.uint8))
 
         for i, (r, g) in enumerate(zip(renders, gts)):
             r = r.cpu().numpy()
-            to_img(r).save(os.path.join(out_dir, "renders", f"{i:05d}.png"))
-            to_img(g).save(os.path.join(out_dir, "gt", f"{i:05d}.png"))
-            to_img(np.abs(r - g)).save(
-                os.path.join(out_dir, "errors", f"{i:05d}.png"))
+            save(r, "renders", i)
+            save(g, "gt", i)
+            save(np.abs(r - g), "errors", i)
     return renders, gts, fps
 
 

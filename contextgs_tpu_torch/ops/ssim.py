@@ -29,7 +29,7 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def _full_float32():
+def full_float32():
     allow_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -41,7 +41,7 @@ def _full_float32():
 def _depthwise(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
     c, k = img.shape[0], window.shape[0]
     weight = window[None, None].expand(c, 1, k, k)
-    with _full_float32():
+    with full_float32():
         return F.conv2d(img[None], weight, padding=k // 2, groups=c)[0]
 
 

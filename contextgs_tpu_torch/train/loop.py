@@ -10,8 +10,9 @@ checkpoints and resume.
 
 The reference's static-shape machinery — the instance budget, `vis_cap` and
 their watermark adaptation — has no counterpart: the port's shapes are
-dynamic. `save_iterations` snapshots with a `model_path` (the ply writer,
-slice 6) raise `NotImplementedError`.
+dynamic. A checkpoint or save iteration with a `model_path` writes the
+training checkpoint `chkpnt{it}.pt`; a save iteration also writes the model
+snapshot `point_cloud/iteration_{it}/{point_cloud.ply, checkpoint.pth}`.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from contextgs_tpu_torch.models.mlps import count_mlp_params
 from contextgs_tpu_torch.models.state import Buffers, SceneModel
 from contextgs_tpu_torch.ops.ssim import psnr as psnr_fn
 from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
+from contextgs_tpu_torch.scene.snapshot import save_model_ply, save_networks
 from contextgs_tpu_torch.train.optim import AdamState, init_adam
 from contextgs_tpu_torch.train.step import (kept_level_maps, make_eval_render,
                                             make_train_step)
@@ -140,17 +142,11 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
         ts.spatial_lr_scale = meta["spatial_lr_scale"]
         ts.iteration = meta["iteration"]
         ts.rng.bit_generator.state = meta["rng_state"]
-        ts.generator.set_state(meta["generator_state"])
+        if "generator_state" in meta:      # absent from a JAX checkpoint
+            ts.generator.set_state(meta["generator_state"])
         order = list(meta["cam_order"])
         log.info("resumed from %s at iteration %d", cfg.start_checkpoint,
                  ts.iteration)
-    snapshots = [s for s in cfg.save_iterations
-                 if ts.iteration < s <= opt.iterations]
-    if cfg.model_path and snapshots:
-        raise NotImplementedError(
-            f"save_iterations {snapshots} with a model_path write a "
-            "point_cloud.ply snapshot, which comes with the drivers slice "
-            "(ROADMAP.md queue 1, slice 6); use checkpoint_iterations")
     log.info("init: %d anchors (capacity %d), voxel_size=%.6f",
              st.n_alive(model), model.buffers.alive.shape[0], ts.voxel_size)
 
@@ -252,6 +248,20 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
                      rng_state=ts.rng.bit_generator.state,
                      generator_state=ts.generator.get_state(),
                      cam_order=list(order)))
+        if it in cfg.save_iterations and cfg.model_path:
+            # the model snapshot (ref scene/__init__.py:98-101), distinct
+            # from the training checkpoint
+            pc_dir = os.path.join(cfg.model_path, "point_cloud",
+                                  f"iteration_{it}")
+            save_model_ply(os.path.join(pc_dir, "point_cloud.ply"),
+                           model.params, model.buffers)
+            save_networks(
+                os.path.join(pc_dir, "checkpoint.pth"), model.params,
+                extra=dict(
+                    bound_min=model.buffers.bound_min.cpu().numpy(),
+                    bound_max=model.buffers.bound_max.cpu().numpy(),
+                    level_scales=ts.level_scales,
+                    voxel_size=ts.voxel_size, iteration=it))
 
     log.info("training done in %.1fs", time.time() - t_start)
     return ts

@@ -1,5 +1,6 @@
 """Camera/projection math (numpy, host-side); the port's copy of
-`contextgs_tpu/utils/graphics.py` for what the renderer needs.
+`contextgs_tpu/utils/graphics.py` for what the renderer and the scene
+loaders need.
 
 Conventions: world-to-view is COLMAP-style (R stored transposed, t as-is), the
 projection matrix is the 3DGS one (z_sign=+1, row 3 carries +z so
@@ -50,3 +51,21 @@ def perspective_projection(znear: float, zfar: float,
     P[2, 2] = zfar / (zfar - znear)
     P[2, 3] = -(zfar * znear) / (zfar - znear)
     return P
+
+
+def fov_to_focal(fov: float, pixels: float) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal_to_fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
+def qvec_to_rotmat(q: np.ndarray) -> np.ndarray:
+    """COLMAP (w,x,y,z) quaternion → 3x3 rotation matrix."""
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])

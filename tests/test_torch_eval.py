@@ -6,12 +6,14 @@ import ast
 import json
 import math
 import pathlib
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from contextgs_tpu import config as jcfg
 from contextgs_tpu import evaluation as jeval
@@ -27,6 +29,7 @@ from contextgs_tpu_torch.ops import ssim as tssim
 from contextgs_tpu_torch.scene.cameras import Camera as TCamera
 from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
 from contextgs_tpu_torch.train import loop as tloop
+from contextgs_tpu_torch.utils import png as tpng
 
 torch.set_num_threads(1)
 
@@ -127,6 +130,29 @@ def test_render_set_and_write_results(tmp_path):
     assert res["LPIPS"] is None and res["PSNR"] == metrics["PSNR"]
 
 
+def test_render_set_writes_pngs_without_pillow(tmp_path, monkeypatch):
+    """render_set(save_images=True) writes its PNGs with utils/png.py where
+    Pillow does not import; each file reads back as the view truncated to
+    uint8, as the reference writes it."""
+    cfg_t = tcfg.TrainConfig(model=tcfg.ModelConfig(**CFG_KW))
+    dec_t = convert.decoded_scene_from_numpy(
+        jax.tree.map(np.asarray, _decoded_scene(n=200)), cfg_t.model, "cpu")
+    render = teval.make_decoded_renderer(dec_t, cfg_t, W, H, device="cpu")
+    cams = _orbit_cameras(1, image_seed=2)
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "PIL", None)
+        renders, gts, _ = teval.render_set(
+            render, cams, np.zeros(3, np.float32), out_dir=str(tmp_path),
+            save_images=True)
+    r, g = renders[0].numpy(), gts[0]
+    for sub, x in (("renders", r), ("gt", g), ("errors", np.abs(r - g))):
+        path = tmp_path / sub / "00000.png"
+        want = (np.clip(x, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(tpng.read_png(str(path)), want)
+        with Image.open(path) as im:
+            np.testing.assert_array_equal(np.asarray(im), want)
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -136,18 +162,51 @@ def _imported_modules(path):
             yield node.module
 
 
+def _pil_imports(path):
+    """(enclosing function or None, module) of each import of PIL."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            inner = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom):
+                names = [child.module or ""]
+            else:
+                names = []
+            for name in names:
+                if name == "PIL" or name.startswith("PIL."):
+                    yield func, name
+            yield from walk(child, inner)
+
+    yield from walk(tree, None)
+
+
 def test_port_imports_no_jax():
+    """No module of the port (nor chip_smoke.py) imports JAX or the JAX
+    package; none imports Pillow at module level or anywhere but the
+    loaders' `_pillow`, which the JPEG and resize branches call."""
     files = sorted((REPO / "contextgs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     assert {"entropy.py", "context.py", "levels.py", "scan.py",
-            "kvariants.py", "xpose_lab.py", "codec.py",
-            "coder.py"} <= {path.name for path in files}
+            "kvariants.py", "xpose_lab.py", "codec.py", "coder.py",
+            "png.py", "lpips.py", "tboard.py", "snapshot.py", "colmap.py",
+            "train.py", "decompress.py", "bench.py",
+            "make_synth_scene.py"} <= {path.name for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):
                 assert not (mod == banned or mod.startswith(banned + ".")), \
                     f"{path.relative_to(REPO)} imports {mod}"
+        rel = path.relative_to(REPO).as_posix()
+        for func, mod in _pil_imports(path):
+            assert (rel == "contextgs_tpu_torch/scene/dataset_readers.py"
+                    and func == "_pillow"), f"{rel} imports {mod} in {func}"
+    readers = REPO / "contextgs_tpu_torch" / "scene" / "dataset_readers.py"
+    assert [f for f, _ in _pil_imports(readers)] == ["_pillow"]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

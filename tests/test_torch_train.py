@@ -24,6 +24,7 @@ from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.scene.cameras import make_camera
 from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
+from contextgs_tpu_torch.scene.ply_io import read_ply
 from contextgs_tpu_torch.train import loop as tloop
 from contextgs_tpu_torch.train import optim as toptim
 from contextgs_tpu_torch.train import step as tstep
@@ -361,7 +362,9 @@ def test_train_plain_and_noise_with_densify(caplog):
 
 def test_train_reaching_context_or_a_snapshot_raises(tmp_path):
     """The context phase runs (it raised before the context slice); a
-    snapshot with a model_path still raises."""
+    snapshot with a model_path, which raised before the drivers slice, now
+    writes the training checkpoint and the model snapshot of the final
+    state."""
     cfg = _tiny_cfg(iterations=4, noise_from=1, context_from=2)
     bpp = []
     ts = tloop.train(cfg, _tiny_scene(), device="cpu",
@@ -369,10 +372,16 @@ def test_train_reaching_context_or_a_snapshot_raises(tmp_path):
                          float(m.bit_per_param)))
     assert bpp[:2] == [0.0, 0.0] and min(bpp[2:]) > 0
     assert len(ts.level_scales) == cfg.model.level_num - 1
-    cfg = tcfg.TrainConfig(model=cfg.model, model_path=str(tmp_path),
-                           save_iterations=(4,))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tloop.train(cfg, _tiny_scene(), device="cpu")
+    cfg = tcfg.TrainConfig(model=cfg.model, opt=cfg.opt,
+                           model_path=str(tmp_path), save_iterations=(4,),
+                           log_every=1000)
+    ts = tloop.train(cfg, _tiny_scene(), device="cpu")
+    pc_dir = tmp_path / "point_cloud" / "iteration_4"
+    assert (tmp_path / "chkpnt4.pt").exists()
+    assert {p.name for p in pc_dir.iterdir()} == {
+        "point_cloud.ply", "checkpoint.pth", "checkpoint.pth.meta"}
+    ply = read_ply(str(pc_dir / "point_cloud.ply"))
+    assert len(ply["x"]) == tst.n_alive(ts.model)
 
 
 def test_train_plain_noise_and_context(caplog):

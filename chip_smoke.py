@@ -159,6 +159,36 @@ after every phase has held.
    estimate, ms a view of the decoded scene over all 48 views (the first
    5 left out), each driver's and the phase's seconds, and the bench's
    line.
+6c. sharded — multi-GPU training (parallel/, train/sharded_loop.py),
+   after k2_knockouts. offset_turns, where build/prev_offset holds K1's
+   and K2's sources from before the row offset (blend_forward_nooffset.cu,
+   blend_backward_nooffset.cu, from git history; k1_ptxas prints their
+   registers and spills beside the new ones): the two against the new on
+   the serve view, equal, and timed in turns. sharded_bands: K1 and K2
+   over the bands of 2 and 4
+   ranks (23 and 12 tile rows, the last band running 1 and 3 rows past the
+   image) on the serve view's and the last training step's inputs, each
+   band's tile lists cut from the whole image's: the stitched bands equal
+   unbanded K1 bit for bit (rgb, final T, last_contrib), the bands' d_rows
+   summed within 1.5e-3 of each component's largest |grad| of unbanded K2,
+   each band's K1 and K2 against their plain versions with the same row
+   offset, and the bands' times beside the unbanded call's. sharded_train:
+   train_sharded on 2 ranks sharing the card over gloo (NCCL refuses two
+   ranks on one device), the train cell's 90 steps; exact: each rank's K1
+   and K2 once a step, the replicated parameters equal on the ranks, no
+   jax, contextgs_tpu or PIL module in a rank, the gathered model's encode
+   → decode round trip and K1 on a decoded view; bounded against the
+   train phase's single-process run: the plain steps' loss within 5%, each
+   phase's mean drift within 5% (a second single-process run with other
+   draws, printed beside, shows the per-step spread the draws alone give
+   the noise and context steps), the alive anchors within 25% of the
+   grown; printed: ms a step per phase per rank, the splat gather's bytes
+   and ms a step, the reshards' seconds, peak memory per rank.
+   sharded_driver: drivers.train --mesh 1 over NCCL on the drivers phase's
+   scene (made again, 300 steps), drivers.decompress and drivers.test;
+   "decoded" and "ours_from_ckpt" equal to "ours", the rank's K1 and K2
+   once a step, K1 once a decoded test view in each driver; the decoded
+   PSNR beside the drivers phase's.
 7. k3_bound — K3, its plain version and torch.cumsum (the library call)
    timed by CUDA events over back-to-back calls (K3 and torch.cumsum in
    turns, and by the host's clock per call), and K3 and torch.cumsum by the
@@ -176,7 +206,8 @@ after every phase has held.
    K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
    the slab transpose's byte bound.
 9. the `kernels` line (K1's launches: serve, train, codec,
-   make_synth_scene, drivers and bench; K2's: train, drivers and bench),
+   make_synth_scene, drivers, bench, sharded_bands, sharded_train and
+   sharded_driver; K2's: train, drivers, bench and the sharded three),
    then the card line from nvidia-smi, then the result.
 """
 
@@ -236,6 +267,14 @@ K2_SHUFFLES = dict(prev=9 * 5, new=5 + 3 + 2 + 1 + 1)
 PREV_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "prev")
 PREV_SOURCES = dict(k3="scan_prev.cu", k2="blend_backward_prev.cu")
+# K1 and K2 as they were before the row offset (their sources, copied from
+# git history to build/prev_offset/blend_{forward,backward}_nooffset.cu):
+# their registers and spills beside the new ones, and the two timed in
+# turns on the serve view; skipped where the copies are absent
+PREV_OFFSET_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "prev_offset")
+PREV_OFFSET = dict(k1="blend_forward_nooffset.cu",
+                   k2="blend_backward_nooffset.cu")
 # K2's knock-outs, written from its source by text edits into build/ and
 # timed beside it on the serve view: what each part of K2 costs. Each edit
 # is (text of csrc/blend_backward.cu, replacement); a variant whose text is
@@ -451,13 +490,15 @@ def render_keeping_k1(render, cam, bg):
     return store["args"]
 
 
-def compare_k1(rows, ids, bounds, width, height, t_eps=1e-4):
+def compare_k1(rows, ids, bounds, width, height, t_eps=1e-4, row_offset=0):
     """K1 against its plain version on the same card inputs."""
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
 
-    got = tile_kernel.blend_forward(rows, ids, bounds, width, height, t_eps)
+    got = tile_kernel.blend_forward(rows, ids, bounds, width, height, t_eps,
+                                    row_offset)
     want = reference.blend_tiles_reference(rows, ids, bounds, width, height,
-                                           (width + 15) // 16, t_eps=t_eps)
+                                           (width + 15) // 16, t_eps=t_eps,
+                                           row_offset=row_offset)
     torch.cuda.synchronize()
     diff = torch.cat([(got[0] - want[0]).abs().flatten(),
                       (got[1] - want[1]).abs().flatten()])
@@ -686,7 +727,7 @@ def k1_from(source):
     from contextgs_tpu_torch.ops import cuda_build
     from contextgs_tpu_torch.ops.rasterize import tile_kernel
 
-    def call(rows, ids, bounds, width, height, t_eps=1e-4):
+    def call(rows, ids, bounds, width, height, t_eps=1e-4, row_offset=0):
         out = (torch.empty((3, height, width), device=rows.device),
                torch.empty((height, width), device=rows.device),
                torch.empty((height, width), dtype=torch.int32,
@@ -696,7 +737,8 @@ def k1_from(source):
         err = cuda_build.launch(
             fn, rows.device, rows.data_ptr(), ids.data_ptr(),
             bounds.data_ptr(), width, height, (width + 15) // 16,
-            bounds.numel() - 1, t_eps, *(x.data_ptr() for x in out))
+            bounds.numel() - 1, row_offset, t_eps,
+            *(x.data_ptr() for x in out))
         check(err == 0, f"K1 of {source}: CUDA error {err}")
         return out
     return call
@@ -808,6 +850,74 @@ def k2_knockouts(sources, args):
         for name, t in times.items()}
 
 
+def prev_offset_sources():
+    """K1's and K2's sources from before the row offset, or None where a
+    copy is absent."""
+    srcs = {k: os.path.join(PREV_OFFSET_DIR, f)
+            for k, f in PREV_OFFSET.items()}
+    return srcs if all(map(os.path.exists, srcs.values())) else None
+
+
+def offset_turns(sources, k1_args, cot):
+    """K1 and K2 beside their sources from before the row offset on the
+    same unbanded inputs: equal (K1 bit for bit, K2 to its atomics' order)
+    and timed in turns (old, new, new, old) by `cuda_ms`."""
+    import ctypes
+
+    from contextgs_tpu_torch.ops import cuda_build
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    rows, ids, bounds, width, height, t_eps = k1_args
+    dev = rows.device
+    tiles_x, n_tiles = (width + 15) // 16, bounds.numel() - 1
+    old_f = cuda_build.c_function(
+        sources["k1"], "blend_forward",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_void_p] * 4)
+    old_b = cuda_build.c_function(
+        sources["k2"], "blend_backward",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    head = (rows.data_ptr(), ids.data_ptr(), bounds.data_ptr())
+    fwd = tile_kernel.blend_forward(rows, ids, bounds, width, height, t_eps)
+    d_rgb, d_ft = cot
+
+    def k1_old():
+        out = (torch.empty((3, height, width), device=dev),
+               torch.empty((height, width), device=dev),
+               torch.empty((height, width), dtype=torch.int32, device=dev))
+        check(cuda_build.launch(old_f, dev, *head, width, height, tiles_x,
+                                n_tiles, t_eps,
+                                *(x.data_ptr() for x in out)) == 0,
+              "K1 before the row offset launched")
+        return out
+
+    def k2_old():
+        d = torch.zeros_like(rows)
+        check(cuda_build.launch(
+            old_b, dev, *head, *(x.data_ptr() for x in fwd),
+            d_rgb.data_ptr(), d_ft.data_ptr(), width, height, tiles_x,
+            n_tiles, d.data_ptr()) == 0, "K2 before the row offset launched")
+        return d
+
+    def k2_new():
+        return tile_kernel.blend_backward(rows, ids, bounds, *fwd, d_rgb,
+                                          d_ft, width, height, t_eps)
+
+    old_d, new_d = k2_old(), k2_new()
+    res = dict(
+        k1_equal=all(torch.equal(a, b) for a, b in zip(k1_old(), fwd)),
+        k2_max_diff_of_max_grad=float((new_d - old_d).abs().max()
+                                      / old_d.abs().max()),
+        k1=in_turns(k1_old, lambda: tile_kernel.blend_forward(
+            rows, ids, bounds, width, height, t_eps),
+            lambda f: cuda_ms(f, 50)),
+        k2=in_turns(k2_old, k2_new, lambda f: cuda_ms(f, 50)))
+    check(res["k1_equal"], "K1 equal to K1 before the row offset")
+    check(res["k2_max_diff_of_max_grad"] <= 1e-5,
+          "K2 equal to K2 before the row offset, up to its atomics' order")
+    return res
+
+
 def prev_kernels():
     """The previous K3 and K2 sources under build/prev, or None where a copy is
     absent (a checkout holds only the repository's files)."""
@@ -843,24 +953,32 @@ def prev_k3(source):
     return call
 
 
-def k2_from(source):
+def k2_from(source, banded=True):
     """The K2 of `source` (the previous design, or a knock-out) behind the
     launch of K2's wrapper: the same arguments, the zeroed d_rows, the cached
-    function."""
+    function. A source from before the row offset (`banded=False`: the
+    previous design in build/prev) takes the unbanded inputs only."""
+    import ctypes
+
     from contextgs_tpu_torch.ops import cuda_build
     from contextgs_tpu_torch.ops.rasterize import tile_kernel
 
+    argtypes = (tile_kernel.BACKWARD_ARGTYPES if banded else
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 2)
+
     def call(rows, ids, bounds, rgb, ft, last, d_rgb, d_ft, width, height,
-             t_eps=None):
+             t_eps=None, row_offset=0):
         tiles_x = (width + 15) // 16
         d_rows = torch.zeros_like(rows)
-        fn = cuda_build.c_function(source, "blend_backward",
-                                   tile_kernel.BACKWARD_ARGTYPES)
+        fn = cuda_build.c_function(source, "blend_backward", argtypes)
+        offset = (row_offset,) if banded else ()
+        check(banded or row_offset == 0, "an unbanded K2 takes no offset")
         err = cuda_build.launch(
             fn, rows.device, rows.data_ptr(), ids.data_ptr(),
             bounds.data_ptr(), rgb.data_ptr(), ft.data_ptr(),
             last.data_ptr(), d_rgb.data_ptr(), d_ft.data_ptr(), width,
-            height, tiles_x, bounds.numel() - 1, d_rows.data_ptr())
+            height, tiles_x, bounds.numel() - 1, *offset, d_rows.data_ptr())
         check(err == 0, f"K2 of {source}: CUDA error {err}")
         return d_rows
     return call
@@ -881,7 +999,7 @@ def cotangents(width, height, seed, dev):
 
 
 def compare_k2(rows, ids, bounds, width, height, d_rgb, d_ft, t_eps=1e-4,
-               delta=2e-4):
+               delta=2e-4, row_offset=0):
     """K2 against its plain version on the same card inputs: the largest
     distance outside the envelope of the plain gradients at t_eps·(1±δ), and
     the share of rows off the plain gradient at t_eps by more than 1e-4, both
@@ -889,13 +1007,13 @@ def compare_k2(rows, ids, bounds, width, height, d_rgb, d_ft, t_eps=1e-4,
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
 
     rgb, ft, last = tile_kernel.blend_forward(rows, ids, bounds, width,
-                                              height, t_eps)
+                                              height, t_eps, row_offset)
     got = tile_kernel.blend_backward(rows, ids, bounds, rgb, ft, last, d_rgb,
-                                     d_ft, width, height, t_eps)
+                                     d_ft, width, height, t_eps, row_offset)
     torch.cuda.reset_peak_memory_stats()
     plain = torch.stack([reference.blend_tiles_backward_reference(
         rows, ids, bounds, rgb, ft, last, d_rgb, d_ft, width, height,
-        t_eps * f) for f in (1 - delta, 1.0, 1 + delta)])
+        t_eps * f, row_offset) for f in (1 - delta, 1.0, 1 + delta)])
     torch.cuda.synchronize()
     scale = plain[1].abs().amax(0).clamp_min(1e-30)
     outside = torch.maximum((plain.amin(0) - got) / scale,
@@ -2041,7 +2159,345 @@ def drivers_phase(dev):
     return (dict(make_synth_scene=k1_synth,
                  drivers=k1_train + k1_decompress + k1_test,
                  bench=k1_bench),
-            dict(drivers=k2_train, bench=k2_bench))
+            dict(drivers=k2_train, bench=k2_bench), decoded["PSNR"])
+
+
+# the sharded phase: the bands of 2 and 4 ranks; two ranks on the one card
+# over gloo (NCCL refuses two ranks on one device); NCCL at world size 1
+# through the train driver, on the drivers phase's scene with a cut schedule
+SHARD_BANDS = (2, 4)
+SHARD_RANKS = 2
+SHARD_TIMEOUT = 900                  # seconds the ranks may take
+MESH_STEPS = 300
+MESH_SCHEDULE = ["--iterations", str(MESH_STEPS), "--noise_from", "100",
+                 "--context_from", "200", "--start_stat", "25",
+                 "--update_from", "25", "--update_interval", "50",
+                 "--update_until", "251", "--checkpoint_iterations",
+                 str(MESH_STEPS)]
+MESH_PHASES = dict(plain=(6, 100), noise=(101, 200), context=(201, 300))
+SHARD_PHASES = dict(plain=(6, 30), noise=(31, 60), context=(61, 90))
+
+
+def band_lists(ids, bounds, width, height, row0, n_rows):
+    """The tile lists of the band of `n_rows` tile rows from `row0` on, cut
+    from the whole image's: the same gaussians in the same order, tile ids
+    local to the band, empty tiles past the image."""
+    tiles_x, tiles_y = (width + 15) // 16, (height + 15) // 16
+    lo = min(row0, tiles_y) * tiles_x
+    hi = min(row0 + n_rows, tiles_y) * tiles_x
+    b = bounds[lo:hi + 1]
+    b = torch.cat([b, b[-1:].expand(n_rows * tiles_x - (hi - lo))])
+    return ids[int(b[0]):int(b[-1])].contiguous(), (b - b[0]).contiguous()
+
+
+def band_rows(x, row0, n_rows):
+    """Rows [row0·16, (row0 + n_rows)·16) of an [.., H, W] image, zero past
+    its bottom."""
+    h = x.shape[-2]
+    pad = (row0 + n_rows) * 16 - h
+    x = torch.nn.functional.pad(x, (0, 0, 0, max(pad, 0)))
+    return x[..., row0 * 16:(row0 + n_rows) * 16, :].contiguous()
+
+
+def banded_kernels(case, k1_args, cot, n_bands):
+    """K1 and K2 over the bands of `n_bands` ranks against unbanded K1 and
+    K2 on the same inputs: the stitched bands bit for bit (rgb, final T,
+    last_contrib), the bands' d_rows summed within K2's envelope tolerance
+    (1.5e-3 of each component's largest |grad|); each band against its
+    plain versions with the same row offset; the bands' time beside the
+    unbanded call's (`card_ms`). Returns the launches of the banded
+    calls."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    rows, ids, bounds, width, height, t_eps = k1_args
+    d_rgb, d_ft = cot
+    tiles_y = (height + 15) // 16
+    n_rows = -(-tiles_y // n_bands)
+    whole = tile_kernel.blend_forward(rows, ids, bounds, width, height, t_eps)
+    whole_d = tile_kernel.blend_backward(rows, ids, bounds, *whole, d_rgb,
+                                         d_ft, width, height, t_eps)
+    bands = []
+    for b in range(n_bands):
+        row0 = b * n_rows
+        b_ids, b_bounds = band_lists(ids, bounds, width, height, row0,
+                                     n_rows)
+        bands.append((b_ids, b_bounds, band_rows(d_rgb, row0, n_rows),
+                      band_rows(d_ft, row0, n_rows), row0))
+    band_h = n_rows * 16
+    tile_kernel.launches = tile_kernel.backward_launches = 0
+    outs, grads = [], []
+    for b_ids, b_bounds, b_rgb, b_ft, row0 in bands:
+        outs.append(tile_kernel.blend_forward(rows, b_ids, b_bounds, width,
+                                              band_h, t_eps, row0))
+        grads.append(tile_kernel.blend_backward(
+            rows, b_ids, b_bounds, *outs[-1], b_rgb, b_ft, width, band_h,
+            t_eps, row0))
+    torch.cuda.synchronize()
+    launches = (tile_kernel.launches, tile_kernel.backward_launches)
+    stitched = [torch.cat([o[i] for o in outs], -2)[..., :height, :]
+                for i in range(3)]
+    bit_equal = {name: bool(torch.equal(a, w)) for name, a, w in zip(
+        ("rgb", "final_t", "last_contrib"), stitched, whole)}
+    summed = torch.stack(grads).sum(0)
+    scale = whole_d.abs().amax(0).clamp_min(1e-30)
+    k2_err = float(((summed - whole_d).abs() / scale).max())
+    k1_ms = cuda_ms(lambda: tile_kernel.blend_forward(
+        rows, ids, bounds, width, height, t_eps), 20)
+    k2_ms = cuda_ms(lambda: tile_kernel.blend_backward(
+        rows, ids, bounds, *whole, d_rgb, d_ft, width, height, t_eps), 20)
+    band_k1_ms = [cuda_ms(lambda a=a: tile_kernel.blend_forward(
+        rows, a[0], a[1], width, band_h, t_eps, a[4]), 20) for a in bands]
+    band_k2_ms = [cuda_ms(lambda a=a, o=o: tile_kernel.blend_backward(
+        rows, a[0], a[1], *o, a[2], a[3], width, band_h, t_eps, a[4]), 20)
+        for a, o in zip(bands, outs)]
+    plain = []
+    for b_ids, b_bounds, b_rgb, b_ft, row0 in bands:
+        k1 = compare_k1(rows, b_ids, b_bounds, width, band_h, t_eps, row0)
+        k2 = compare_k2(rows, b_ids, b_bounds, width, band_h, b_rgb, b_ft,
+                        t_eps, row_offset=row0)
+        plain.append(dict(row0=row0, k1=k1, k2=k2))
+    emit(phase="sharded_bands", case=case, bands=n_bands, tile_rows=n_rows,
+         rows_past_image=n_rows * n_bands - tiles_y,
+         instances=[int(a[0].numel()) for a in bands],
+         bit_equal=bit_equal, k2_sum_err_of_max_grad=k2_err,
+         launches=launches, k1_ms=k1_ms, band_k1_ms=band_k1_ms,
+         k2_ms=k2_ms, band_k2_ms=band_k2_ms, plain=plain)
+    check(all(bit_equal.values()),
+          f"{case}: the stitched bands equal unbanded K1 ({bit_equal})")
+    check(k2_err <= ENVELOPE, f"{case}: the bands' d_rows sum to K2's")
+    for p in plain:
+        check(p["k1"]["finite"] and p["k1"]["max_abs"] <= 2e-4
+              and p["k1"]["mean_abs"] <= 1e-6,
+              f"{case}: band at row {p['row0']}, K1 against its plain version")
+        check(p["k2"]["finite"] and p["k2"]["envelope_err"] <= ENVELOPE,
+              f"{case}: band at row {p['row0']}, K2 inside the plain envelope")
+    check(launches == (n_bands, n_bands), "one K1 and one K2 a band")
+    return launches
+
+
+def rank_summary(report, phases):
+    """A rank's report as the sharded phase prints it."""
+    steps = report["steps"]
+
+    def median(key, a, b):
+        return float(np.median([s[key] for s in steps if a <= s["it"] <= b]))
+
+    return dict(
+        rank=report["rank"], backend=report["backend"],
+        device=report["device"],
+        step_ms_median={ph: median("ms", a, b)
+                        for ph, (a, b) in phases.items()},
+        splat_gather_bytes_median=median("splat_bytes", 1, len(steps)),
+        splat_gather_ms_median={ph: median("splat_ms", a, b)
+                                for ph, (a, b) in phases.items()},
+        reshard_s=report["reshard_s"], densify=report["densify"],
+        peak_mem_gib=report["peak_mem_gib"],
+        k1_launches=report["k1_launches"],
+        k2_launches=report["k2_launches"],
+        foreign_modules=report["foreign_modules"])
+
+
+def drift(losses, reference):
+    """Per phase of SHARD_PHASES: the largest per-step |loss − reference| /
+    reference and the mean of the signed (loss − reference) / reference."""
+    rel = [(a - b) / b for a, b in zip(losses, reference)]
+    return {ph: dict(max_abs_rel=max(abs(r) for r in rel[a - 1:b]),
+                     mean_rel=float(np.mean(rel[a - 1:b])))
+            for ph, (a, b) in SHARD_PHASES.items()}
+
+
+def sharded_train_phase(tcfg, scene, single, dev):
+    """train_sharded on SHARD_RANKS ranks sharing the card over gloo, the
+    train cell's 90 steps; against the single-process run of the same call
+    (`single`: its losses, its final and grown anchors). Exact: each rank's
+    K1 and K2 once a step, the replicated parameters equal on the ranks,
+    no jax, contextgs_tpu or PIL module in a rank, the gathered model's
+    encode → decode round trip, K1 on a decoded view. Bounded, against the
+    single run: the plain phase's per-step loss within 5% (no draws enter
+    it: what differs is the band-local SSIM), every phase's mean signed
+    drift within 5%, and the alive anchors within 25% of the grown. The
+    noise and context steps draw their noise from each rank's generator,
+    so their per-step losses differ from the single run's as a single run
+    with other draws does (up to 7.2% at step 78 of this cell, NVIDIA H100
+    80GB HBM3, 700 W): that spread is measured in the same call by a second
+    single-process run with another seed and printed beside the sharded
+    one. Returns the ranks' K1 and K2 launches."""
+    from contextgs_tpu_torch.compression import codec
+    from contextgs_tpu_torch.evaluation import make_decoded_renderer
+    from contextgs_tpu_torch.train import loop as tloop
+    from contextgs_tpu_torch.train.sharded_loop import train_sharded
+
+    other = []
+
+    def reseeded(it, ts_, metrics):
+        if it == 1:
+            ts_.generator.manual_seed(777)
+        other.append(float(metrics.loss))
+
+    tloop.train(tcfg, scene, callback=reseeded)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ts = train_sharded(tcfg, scene, SHARD_RANKS, device=dev, backend="gloo",
+                       timeout=SHARD_TIMEOUT)
+    train_s = time.perf_counter() - t0
+    reports = ts.ranks
+    losses = [s["loss"] for s in reports[0]["steps"]]
+    sharded_drift = drift(losses, single["losses"])
+    other_drift = drift(other, single["losses"])
+    net_equal = all(torch.equal(x, reports[1]["net"][n])
+                    for n, x in reports[0]["net"].items())
+    alive = int(ts.model.buffers.alive.sum())
+    grown = sum(d["grown"] for d in single["densify"])
+
+    p, b = ts.model.params, ts.model.buffers
+    root = tempfile.mkdtemp(prefix="contextgs_sharded_")
+    try:
+        t0 = time.perf_counter()
+        _, states = codec.encode_scene(
+            p, b, tcfg.model, ts.level_scales, ts.voxel_size, root,
+            return_states=True, disable_hyper=tcfg.opt.disable_hyper)
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dec = codec.decode_scene(root, tcfg.model, device=dev)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    equal = {k: bool(np.array_equal(getattr(dec, k).cpu().numpy(),
+                                    states[k]))
+             for k in ("anchor", "feat", "scaling", "offsets", "masks",
+                       "hyper", "level")}
+    del states
+    render = make_decoded_renderer(dec, tcfg, W, H, device=dev)
+    k1_dec = compare_k1(*render_keeping_k1(
+        render, scene.train_cameras[0], np.zeros(3, np.float32)))
+    del render, dec
+    summaries = [rank_summary(r, SHARD_PHASES) for r in reports]
+    emit(phase="sharded_train", ranks=SHARD_RANKS, backend="gloo",
+         steps=len(losses), seconds=train_s, anchors_final=alive,
+         single_anchors_final=single["anchors_final"], single_grown=grown,
+         drift_to_single=sharded_drift,
+         other_draws_drift_to_single=other_drift, losses=losses,
+         single_losses=single["losses"], other_draws_losses=other,
+         level_scales=ts.level_scales, replicated_equal=net_equal,
+         encode_s=encode_s, decode_s=decode_s, states_equal=equal,
+         k1_decoded_view=k1_dec, per_rank=summaries)
+    for r in summaries:
+        check(r["k1_launches"] == TRAIN_STEPS
+              and r["k2_launches"] == TRAIN_STEPS,
+              f"rank {r['rank']}: K1 and K2 once a step")
+        check(not r["foreign_modules"],
+              f"rank {r['rank']} imported {r['foreign_modules']}")
+    check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
+          "sharded losses finite, one a step")
+    check(net_equal, "the replicated parameters are equal on the ranks")
+    check(all(equal.values()), f"sharded model round trip: {equal}")
+    check(k1_dec["finite"] and k1_dec["max_abs"] <= 2e-4
+          and k1_dec["mean_abs"] <= 1e-6, "K1 on a decoded view")
+    check(sharded_drift["plain"]["max_abs_rel"] < 0.05,
+          "sharded plain-phase loss within 5% of the single run's each step")
+    check(all(abs(d["mean_rel"]) < 0.05 for d in sharded_drift.values()),
+          f"sharded loss within 5% of the single run's per phase "
+          f"({sharded_drift})")
+    check(abs(alive - single["anchors_final"]) <= max(3, 0.25 * grown),
+          "sharded alive anchors within 25% of the grown")
+    return (sum(r["k1_launches"] for r in summaries),
+            sum(r["k2_launches"] for r in summaries))
+
+
+def mesh_driver_phase(dev, drivers_psnr):
+    """drivers.train --mesh 1 over NCCL from main(argv), on the drivers
+    phase's scene (made again in a temporary directory) with MESH_SCHEDULE,
+    then drivers.decompress and drivers.test. Exact: results.json written,
+    "decoded" and "ours_from_ckpt" equal to "ours", the rank's K1 and K2
+    once a step over NCCL, K1 once a decoded test view in each driver, no
+    jax or PIL module in the rank. Returns K1's and K2's launches."""
+    import contextgs_tpu_torch.drivers.train as train_driver
+    from contextgs_tpu_torch.drivers import decompress
+    from contextgs_tpu_torch.drivers import test as test_driver
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+    from contextgs_tpu_torch.scripts import make_synth_scene
+
+    kept, seconds = {}, {}
+    root = tempfile.mkdtemp(prefix="contextgs_mesh_")
+    try:
+        scene_dir = os.path.join(root, "scene")
+        model = os.path.join(root, "model")
+        with contextlib.redirect_stdout(sys.stderr):
+            check(make_synth_scene.main(["--out", scene_dir, *DRIVER_SCENE])
+                  == 0, "make_synth_scene")
+        torch.cuda.empty_cache()
+        parent = {}
+        for name, main_fn, argv in (
+                ("train", train_driver.main,
+                 [*MESH_SCHEDULE, "--mesh", "1"]),
+                ("decompress", decompress.main, []),
+                ("test", test_driver.main, [])):
+            tile_kernel.launches = tile_kernel.backward_launches = 0
+            t0 = time.perf_counter()
+            with wrapped(train_driver, "train_sharded", keep_output(kept)):
+                check(main_fn(["-s", scene_dir, "-m", model, *argv]) == 0,
+                      f"drivers.{name} (mesh)")
+            seconds[name] = time.perf_counter() - t0
+            parent[name] = (tile_kernel.launches,
+                            tile_kernel.backward_launches)
+        with open(os.path.join(model, "results.json")) as f:
+            results = json.load(f)
+        meta = torch.load(os.path.join(model, f"chkpnt{MESH_STEPS}.pt"),
+                          weights_only=False)["meta"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rank = rank_summary(kept["out"].ranks[0], MESH_PHASES)
+    ours, decoded = results["ours"], results["decoded"]
+    n_test = DRIVER_TEST_VIEWS
+    emit(phase="sharded_driver", steps=MESH_STEPS, ours=ours,
+         decoded=decoded, ours_from_ckpt=results["ours_from_ckpt"],
+         decoded_psnr=decoded["PSNR"], drivers_phase_decoded_psnr=drivers_psnr,
+         checkpoint_n_devices=meta.get("n_devices"), seconds=seconds,
+         parent_launches=parent, rank=rank)
+    check(rank["backend"] == "nccl", "the mesh driver's rank ran NCCL")
+    check(rank["k1_launches"] == MESH_STEPS
+          and rank["k2_launches"] == MESH_STEPS,
+          "mesh driver: K1 and K2 once a step in the rank")
+    check(not rank["foreign_modules"],
+          f"mesh driver rank imported {rank['foreign_modules']}")
+    check(parent["train"] == (n_test, 0) and parent["decompress"]
+          == (n_test, 0) and parent["test"] == (n_test, 0),
+          f"mesh drivers: K1 once a decoded test view ({parent})")
+    check(meta.get("n_devices") == 1, "the checkpoint says one rank")
+    check(decoded["PSNR"] == ours["PSNR"] and decoded["SSIM"] == ours["SSIM"],
+          "mesh: decompress's PSNR and SSIM equal train's")
+    check(all(results["ours_from_ckpt"][k] == ours[k]
+              for k in ("PSNR", "SSIM", "size_MB")),
+          "mesh: ours_from_ckpt equals ours")
+    check(decoded["PSNR"] > 15.0, "mesh: decoded test PSNR above 15 dB")
+    k1 = rank["k1_launches"] + sum(v[0] for v in parent.values())
+    return k1, rank["k2_launches"]
+
+
+def sharded_phase(tcfg, scene, single, serve_k1, train_k1, dev,
+                  drivers_psnr, prev_offset):
+    """(a) the banded kernels on the serve view's and the last training
+    step's K1/K2 inputs (and, where build/prev_offset holds their sources
+    from before the row offset, K1 and K2 beside those in turns), (b) two
+    ranks on the one card, (c) NCCL at world size 1 through the train
+    driver. Returns K1's and K2's launches by path."""
+    if prev_offset:
+        emit(phase="offset_turns", case="serve_100k_1280x720",
+             **offset_turns(prev_offset, serve_k1, cotangents(W, H, 50,
+                                                              dev)))
+    launches = {"sharded_bands": [0, 0]}
+    for case, args, seed in (("serve_100k_1280x720", serve_k1, 60),
+                             ("train_last_step_1280x720", train_k1, 61)):
+        for n_bands in SHARD_BANDS:
+            got = banded_kernels(case, args, cotangents(W, H, seed, dev),
+                                 n_bands)
+            launches["sharded_bands"][0] += got[0]
+            launches["sharded_bands"][1] += got[1]
+    launches["sharded_train"] = sharded_train_phase(tcfg, scene, single, dev)
+    launches["sharded_driver"] = mesh_driver_phase(dev, drivers_psnr)
+    return ({k: v[0] for k, v in launches.items()},
+            {k: v[1] for k, v in launches.items()})
 
 
 def main() -> int:
@@ -2071,6 +2527,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     prev = prev_kernels()
+    prev_offset = prev_offset_sources()
     knockouts = k2_knockout_sources()
     geometry, geometry_sources = k1_geometry_sources()
     check(reference.FWD_WARP == k1_warp(geometry),
@@ -2079,6 +2536,7 @@ def main() -> int:
     cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
                                             xpose_lab.SOURCE)
                      + (tuple(prev.values()) if prev else ())
+                     + (tuple(prev_offset.values()) if prev_offset else ())
                      + tuple(knockouts.values())
                      + tuple(geometry_sources.values()))
     build_s = time.perf_counter() - t0
@@ -2106,7 +2564,11 @@ def main() -> int:
          v4_first_design={k: v for k, v in ptxas_kernels("kvariants").items()
                           if "ILi4E" in k},
          other_geometries={name: ptxas_kernels(f"blend_forward_{name}")
-                           for name in geometry_sources})
+                           for name in geometry_sources},
+         k2=ptxas_kernels("blend_backward"),
+         before_row_offset=prev_offset and dict(
+             k1=ptxas_kernels("blend_forward_nooffset"),
+             k2=ptxas_kernels("blend_backward_nooffset")))
     k4_sass = sass_summary(kvariants.SOURCE)
     if k4_sass is None:
         emit(phase="k4_sass", cuobjdump=None)
@@ -2228,7 +2690,7 @@ def main() -> int:
     del log, views, by_name
 
     # K1 on the main path's inputs (last view): check, time, bound
-    rows, ids, bounds, _, _, t_eps = k1_kept["args"]
+    rows, ids, bounds, _, _, t_eps = k1_kept["args"][:6]
     k1_res = compare_k1(rows, ids, bounds, W, H, t_eps)
     emit(phase="k1_check", case="serve_100k_1280x720", **k1_res)
     check(k1_res["finite"] and k1_res["max_abs"] <= 2e-4
@@ -2457,11 +2919,13 @@ def main() -> int:
     # ---- 6. the codec: encode the trained model, decode, serve (K1) ----
     begin("codec")
     codec_k1 = codec_phase(ts, tcfg, scene, run, size_mb, serve_ms, dev)
-    del ts, scene, dec, log
+    single = dict(losses=losses, densify=densified,
+                  anchors_final=int(ts.model.buffers.alive.sum()))
+    del ts, dec, log
 
     # ---- 6b. the drivers from disk, and the rasterizer bench ----
     begin("drivers")
-    drivers_k1, drivers_k2 = drivers_phase(dev)
+    drivers_k1, drivers_k2, drivers_psnr = drivers_phase(dev)
     begin("k1_k2_bounds")
 
     kept = k2_kept["args"]
@@ -2512,7 +2976,7 @@ def main() -> int:
     k2_serve_ms = cuda_ms(lambda: tile_kernel.blend_backward(*serve_k2), 20)
     k2_turns = {}
     if prev:
-        old = k2_from(prev["k2"])
+        old = k2_from(prev["k2"], banded=False)
         for case, args in (("train_last_step_1280x720", kept),
                            ("serve_100k_1280x720", serve_k2)):
             k2_turns[case] = in_turns(
@@ -2538,7 +3002,13 @@ def main() -> int:
              else None)
     emit(phase="k2_knockouts", case="serve_100k_1280x720",
          **k2_knockouts(knockouts, serve_k2))
-    del kept, rows, ids, bounds, serve_k2
+
+    # ---- 6c. sharded: bands, two ranks on the card, NCCL at one ----
+    begin("sharded")
+    sharded_k1, sharded_k2 = sharded_phase(
+        tcfg, scene, single, (*serve_k2[:3], W, H, serve_k2[10]),
+        (rows, ids, bounds, W, H, kept[10]), dev, drivers_psnr, prev_offset)
+    del kept, rows, ids, bounds, serve_k2, scene
 
     # ---- 7. K3 timed against torch.cumsum and its byte bound ----
     begin("k3_bound")
@@ -2570,9 +3040,11 @@ def main() -> int:
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_forward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:317",
              launches=(k1_launches + train_k1 + codec_k1
-                       + sum(drivers_k1.values())),
+                       + sum(drivers_k1.values())
+                       + sum(sharded_k1.values())),
              launches_by_path=dict(serve=k1_launches, train=train_k1,
-                                   codec=codec_k1, **drivers_k1),
+                                   codec=codec_k1, **drivers_k1,
+                                   **sharded_k1),
              max_abs_err=k1_res["max_abs"], ms=k1_ms, plain_ms=plain_ms,
              bound_ms=k1_bound["bound_ms"],
              bound_by=contract_label(k1_bound),
@@ -2590,8 +3062,10 @@ def main() -> int:
         dict(name="blend_backward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_backward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:548",
-             launches=train_k2 + sum(drivers_k2.values()),
-             launches_by_path=dict(train=train_k2, **drivers_k2),
+             launches=(train_k2 + sum(drivers_k2.values())
+                       + sum(sharded_k2.values())),
+             launches_by_path=dict(train=train_k2, **drivers_k2,
+                                   **sharded_k2),
              max_abs_err=k2_res["max_abs"], ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=k2_bound["bound_ms"],
              bound_by=contract_label(k2_bound),

@@ -8,11 +8,19 @@ metrics → results.json.
 The flags are the JAX driver's. Refused, with the reason: `--budget` and
 `--train_vis_cap` (the port sizes its instance lists per render), a
 `--backend` other than `auto` (the rasterizer follows the tensors' device),
-`--mesh` and `--mesh_force_cpu` (multi-GPU training is not ported yet),
 and `--gui`, `--ip` and `--port` (the SIBR viewer is not ported yet).
 `--profile_steps` writes a `torch.profiler` trace under
 `<model_path>/profile`; `--detect_anomaly` turns on
 `torch.autograd.set_detect_anomaly`.
+
+`--mesh N` trains on N ranks (`train/sharded_loop.train_sharded`): one
+process a CUDA card over NCCL, and more ranks than cards raise;
+`--mesh_force_cpu` (or `--force_cpu`) runs the N ranks on the CPU over
+gloo, the counterpart of the JAX driver's virtual CPU mesh. Rank 0 writes
+the logs, the checkpoints and the snapshot; this process then encodes,
+decodes, renders and writes results.json from the gathered model, as after
+a single-process run. The ranks run in processes of their own, so
+`--profile_steps` and `--detect_anomaly` are refused with `--mesh`.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -36,6 +45,7 @@ from contextgs_tpu_torch.config import (ModelConfig, OptimizationConfig,
 from contextgs_tpu_torch.models import state as st
 from contextgs_tpu_torch.scene.ply_io import read_ply
 from contextgs_tpu_torch.train.loop import train
+from contextgs_tpu_torch.train.sharded_loop import train_sharded
 from contextgs_tpu_torch.utils.tboard import SummaryWriter
 
 MB = 8 * 1024 * 1024
@@ -112,9 +122,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--detect_anomaly", action="store_true",
                    help="torch.autograd.set_detect_anomaly over training")
     p.add_argument("--mesh", type=int, default=None,
-                   help="refused: multi-GPU training is not ported yet")
+                   help="train on N ranks, one a CUDA card over NCCL "
+                        "(anchors sharded, image tiles banded; "
+                        "parallel/sharded.py); the final encode runs from "
+                        "the gathered model")
     p.add_argument("--mesh_force_cpu", action="store_true",
-                   help="refused: multi-GPU training is not ported yet")
+                   help="run the --mesh ranks on the CPU over gloo")
     drivers.add_common(p)
     return p
 
@@ -128,9 +141,13 @@ def refuse(p: argparse.ArgumentParser, args) -> None:
     if args.backend != "auto":
         p.error("--backend is refused: the rasterizer runs K1 and K2 on CUDA "
                 "tensors and their plain versions on CPU tensors")
-    if args.mesh is not None or args.mesh_force_cpu:
-        p.error("--mesh and --mesh_force_cpu are refused: multi-GPU "
-                "training is not ported yet")
+    if args.mesh_force_cpu and not args.mesh:
+        p.error("--mesh_force_cpu is refused without --mesh N")
+    if args.mesh is not None and args.mesh < 1:
+        p.error("--mesh needs a number of ranks >= 1")
+    if args.mesh and (args.profile_steps or args.detect_anomaly):
+        p.error("--profile_steps and --detect_anomaly are refused with "
+                "--mesh: the ranks train in processes of their own")
     if args.gui:
         p.error("--gui is refused: the SIBR viewer (utils/viewer.py) is not "
                 "ported yet")
@@ -207,10 +224,49 @@ def profiler(cfg: TrainConfig, n: int, dev: torch.device, log):
                                          repeat=1))
 
 
+def write_progress(model_path: str, total: int, it: int, ts, metrics) -> None:
+    """Heartbeat for external monitors, every 100 steps: a killed run
+    leaves its last known state on disk. A training callback (with
+    model_path and total bound), picklable for the ranks of `--mesh`."""
+    if not model_path or it % 100:
+        return
+    tmp = os.path.join(model_path, ".progress.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(dict(iteration=it, loss=float(metrics.loss),
+                       psnr=float(metrics.psnr),
+                       bpp=float(metrics.bit_per_param), total=total,
+                       ts=time.time()), f)
+    os.replace(tmp, os.path.join(model_path, "progress.json"))
+
+
+def run_training(args, cfg: TrainConfig, scene, dev: torch.device, callback,
+                 tb):
+    """train(), or with --mesh N train_sharded() on N ranks (rank 0 writes
+    the heartbeat; the training scalars go to TensorBoard afterwards, from
+    rank 0's report)."""
+    if not args.mesh:
+        return train(cfg, scene, device=dev, callback=callback)
+    ts = train_sharded(
+        cfg, scene, args.mesh, device=dev,
+        callback=functools.partial(write_progress, cfg.model_path,
+                                   cfg.opt.iterations))
+    if tb is not None:
+        for s in ts.ranks[0]["steps"]:
+            if s["it"] % 100 == 0:
+                tb.add_scalar("train_loss_patches/total_loss", s["loss"],
+                              s["it"])
+                tb.add_scalar("train/psnr", s["psnr"], s["it"])
+                tb.add_scalar("train/bit_per_param", s["bit_per_param"],
+                              s["it"])
+    return ts
+
+
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     refuse(p, args)
+    if args.mesh_force_cpu:
+        args.force_cpu = True
     dev = drivers.check_common(p, args)
     cfg = config_from_args(args)
     with drivers.logging_to(cfg.model_path) as log:
@@ -233,21 +289,8 @@ def _run(args, cfg: TrainConfig, dev: torch.device, log) -> int:
         tb = SummaryWriter(os.path.join(cfg.model_path, "tb"))
     prof = None     # the profiler, while the first run trains
 
-    def write_progress(it, metrics):
-        # heartbeat for external monitors: a killed run leaves its last
-        # known state on disk
-        if not cfg.model_path or it % 100:
-            return
-        tmp = os.path.join(cfg.model_path, ".progress.json.tmp")
-        with open(tmp, "w") as f:
-            json.dump(dict(iteration=it, loss=float(metrics.loss),
-                           psnr=float(metrics.psnr),
-                           bpp=float(metrics.bit_per_param),
-                           total=cfg.opt.iterations, ts=time.time()), f)
-        os.replace(tmp, os.path.join(cfg.model_path, "progress.json"))
-
     def callback(it, ts_, metrics):
-        write_progress(it, metrics)
+        write_progress(cfg.model_path, cfg.opt.iterations, it, ts_, metrics)
         if prof is not None:
             prof.step()
         if tb is not None and it % 100 == 0:
@@ -262,7 +305,7 @@ def _run(args, cfg: TrainConfig, dev: torch.device, log) -> int:
         with torch.autograd.set_detect_anomaly(args.detect_anomaly):
             # a trace whose window runs past training closes at its end
             with profiler(cfg, args.profile_steps, dev, log) as prof:
-                ts = train(cfg, scene, device=dev, callback=callback)
+                ts = run_training(args, cfg, scene, dev, callback, tb)
             prof = None
             if args.warmup:
                 # reboot from the just-saved PLY snapshot: its anchors
@@ -275,7 +318,7 @@ def _run(args, cfg: TrainConfig, dev: torch.device, log) -> int:
                     f"iteration_{cfg.opt.iterations}", "point_cloud.ply"))
                 scene = dataclasses.replace(
                     scene, points=np.stack([v["x"], v["y"], v["z"]], axis=1))
-                ts = train(cfg, scene, device=dev, callback=callback)
+                ts = run_training(args, cfg, scene, dev, callback, tb)
 
         if args.skip_codec:
             return 0

@@ -100,32 +100,38 @@ def decode_neural_gaussians(
                            gauss_valid=valid, anchor_visible=visible_mask)
 
 
-def generate_neural_gaussians(
+class PhaseInputs(NamedTuple):
+    """What a training phase decodes, for all N anchors."""
+
+    anchor_q: torch.Tensor       # [N,3] quantized anchors
+    feat: torch.Tensor           # [N,F]
+    grid_scaling: torch.Tensor   # [N,6]
+    grid_offsets: torch.Tensor   # [N,K,3]
+    aux: DecodeAux
+
+
+def phase_inputs(
     params: st.Params,
     buffers: st.Buffers,
     cfg: ModelConfig,
     opt: OptimizationConfig,
-    camera_center: torch.Tensor,
-    visible_mask: torch.Tensor,       # [N] bool from prefilter (∧ alive)
     generator: torch.Generator | None = None,
     *,
     phase: str,                       # "plain" | "noise" | "context"
     training: bool,
-    anchor_index: torch.Tensor | None = None,
     maps: LevelMaps | None = None,    # required for phase="context"
-) -> tuple[NeuralGaussians, DecodeAux]:
-    """Training-schedule switchyard.
+    draws: context.ContextDraws | None = None,
+) -> PhaseInputs:
+    """The anchors' features, scalings and offsets as `phase` decodes them.
 
     phase="plain": raw parameters (step ≤ 3000, or a decoded-version eval);
     phase="noise": uniform noise at base Q on feat, grid scaling and offsets,
     drawn from `generator` in that order over all N anchors, whether or not
     `training` is set (the reference does the same); phase="context": the
     multi-level context quantization over all N anchors (`maps` gives the
-    levels), noise of the predicted Q from `context.context_draws` and the
-    rate estimate in `DecodeAux` when training, STE rounding and no draws
-    otherwise. With `anchor_index`, only those anchors are decoded (noise
-    and context cover all N, so they do not depend on the view) and the
-    result covers their len(anchor_index)·K slots."""
+    levels), noise of the predicted Q from `draws` (by default
+    `context.context_draws` of `generator`) and the rate estimate in the
+    aux when training, STE rounding and no draws otherwise."""
     if phase not in ("plain", "noise", "context"):
         raise ValueError(f"unknown phase {phase!r}")
     anchor_q = st.get_anchor(params, buffers)
@@ -143,9 +149,10 @@ def generate_neural_gaussians(
         if maps is None:
             raise ValueError('phase="context" needs the level maps')
         n = anchor_q.shape[0]
-        # looked up on the module, so that a test can hand in its draws
-        draws = context.context_draws(generator, n, cfg, training,
-                                      anchor_q.device)
+        if draws is None:
+            # looked up on the module, so that a test can hand in its draws
+            draws = context.context_draws(generator, n, cfg, training,
+                                          anchor_q.device)
         ctx = context.multi_scale_generate(params, buffers, cfg, maps,
                                            anchor_q, draws, training,
                                            disable_hyper=opt.disable_hyper)
@@ -158,6 +165,32 @@ def generate_neural_gaussians(
                 st.get_mask_anchor(params, buffers.alive), draws.rate,
                 sample_frac=opt.rate_sample_frac)
         aux = DecodeAux(rate=rate, context=ctx)
+    return PhaseInputs(anchor_q, feat, grid_scaling, grid_offsets, aux)
+
+
+def generate_neural_gaussians(
+    params: st.Params,
+    buffers: st.Buffers,
+    cfg: ModelConfig,
+    opt: OptimizationConfig,
+    camera_center: torch.Tensor,
+    visible_mask: torch.Tensor,       # [N] bool from prefilter (∧ alive)
+    generator: torch.Generator | None = None,
+    *,
+    phase: str,                       # "plain" | "noise" | "context"
+    training: bool,
+    anchor_index: torch.Tensor | None = None,
+    maps: LevelMaps | None = None,    # required for phase="context"
+    inputs: PhaseInputs | None = None,
+) -> tuple[NeuralGaussians, DecodeAux]:
+    """Training-schedule switchyard: `phase_inputs` (or the `inputs` it
+    gave), then the decode. Noise and context cover all N anchors, so they
+    do not depend on the view. With `anchor_index`, only those anchors are
+    decoded and the result covers their len(anchor_index)·K slots."""
+    if inputs is None:
+        inputs = phase_inputs(params, buffers, cfg, opt, generator,
+                              phase=phase, training=training, maps=maps)
+    anchor_q, feat, grid_scaling, grid_offsets, aux = inputs
     binary_mask = st.get_mask(params)
     if anchor_index is not None:
         feat, grid_scaling, grid_offsets, anchor_q, binary_mask, \

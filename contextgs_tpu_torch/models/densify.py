@@ -13,6 +13,11 @@ update_hierachy_factor^i and deduplicated against occupied anchor voxels;
 new anchors take the voxel-max feature and hyper latent of their candidates.
 The random draws all come from `keep_draws`, so a test can hand both
 packages the same numbers.
+
+Under a process group (`group`, the counterpart of the reference's
+`gather_axis`), each rank grows into its own free slots, and the candidate
+voxels are deduplicated against the anchors of every rank: their voxel keys
+and `alive` are all-gathered at each depth.
 """
 
 from __future__ import annotations
@@ -118,10 +123,14 @@ def _group_max(values: torch.Tensor, group: torch.Tensor, rows: torch.Tensor):
 def adjust_anchors(params: Params, buffers: Buffers, adam: AdamState,
                    cfg: ModelConfig, opt: OptimizationConfig,
                    voxel_size: float,
-                   generator: torch.Generator | None = None) -> DensifyResult:
+                   generator: torch.Generator | None = None,
+                   group=None, draws: torch.Tensor | None = None
+                   ) -> DensifyResult:
     """Grow, reset statistics, prune. The anchor fields of `params` and the
     Adam moments are written in place (the pool is the model's largest
-    state); the buffers are new tensors."""
+    state); the buffers are new tensors. `draws` ([update_depth, N·K], as
+    `keep_draws` gives them) replace the generator's; with `group` (a
+    `parallel.comm.Comm`) the occupied voxels are every rank's."""
     n, k = params.offsets.shape[0], cfg.n_offsets
     nk = n * k
     dev = params.anchor.device
@@ -138,7 +147,8 @@ def adjust_anchors(params: Params, buffers: Buffers, adam: AdamState,
     offset_denom = buffers.offset_denom
     total_grown = torch.zeros((), dtype=torch.int64, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    draws = keep_draws(generator, cfg.update_depth, nk, dev)
+    if draws is None:
+        draws = keep_draws(generator, cfg.update_depth, nk, dev)
     slot = torch.arange(nk, dtype=torch.int32, device=dev)
 
     for i in range(cfg.update_depth):
@@ -158,7 +168,11 @@ def adjust_anchors(params: Params, buffers: Buffers, adam: AdamState,
         anchor_keys = torch.round(anchor_q / cur_size).to(torch.int32)
 
         gid, is_leader, _ = _sorted_groups(cand_keys, cand, slot)
-        occupied = _voxel_occupied(cand_keys, cand, anchor_keys, alive)
+        occ_keys, occ_valid = anchor_keys, alive
+        if group is not None:
+            occ_keys = group.all_gather(anchor_keys)
+            occ_valid = group.all_gather(alive)
+        occupied = _voxel_occupied(cand_keys, cand, occ_keys, occ_valid)
         # a group is occupied iff any member is (same voxel)
         occ_per_group = torch.zeros(nk, dtype=torch.int32, device=dev)
         occ_per_group.scatter_reduce_(0, gid, occupied.to(torch.int32),

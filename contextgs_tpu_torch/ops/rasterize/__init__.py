@@ -59,20 +59,22 @@ class _TileBlend(torch.autograd.Function):
     called, so that a caller may wrap them (chip_smoke.py times them so)."""
 
     @staticmethod
-    def forward(ctx, rows, gauss_ids, tile_bounds, width, height, t_eps):
+    def forward(ctx, rows, gauss_ids, tile_bounds, width, height, t_eps,
+                row_offset):
         rgb, final_t, last = blend_forward(rows, gauss_ids, tile_bounds,
-                                           width, height, t_eps)
+                                           width, height, t_eps, row_offset)
         ctx.save_for_backward(rows, gauss_ids, tile_bounds, rgb, final_t,
                               last)
-        ctx.dims = (width, height, t_eps)
+        ctx.dims = (width, height, t_eps, row_offset)
         return rgb, final_t
 
     @staticmethod
     def backward(ctx, d_rgb, d_final_t):
-        width, height, t_eps = ctx.dims
+        width, height, t_eps, row_offset = ctx.dims
         d_rows = blend_backward(*ctx.saved_tensors, d_rgb.contiguous(),
-                                d_final_t.contiguous(), width, height, t_eps)
-        return d_rows, None, None, None, None, None
+                                d_final_t.contiguous(), width, height, t_eps,
+                                row_offset)
+        return d_rows, None, None, None, None, None, None
 
 
 def rasterize(
@@ -93,25 +95,34 @@ def rasterize(
     scale_modifier: float = 1.0,
     screen_dummy: torch.Tensor | None = None,
     t_eps: float | None = None,
+    tile_band: tuple | None = None,
 ) -> RasterOutput:
     """Differentiable tile rasterization of 3D gaussians.
 
     `valid` force-culls gaussian slots. `screen_dummy` is the densification
     hook of the reference: added to the projected means scaled by
-    (0.5·W, 0.5·H). `t_eps` overrides the early-termination threshold."""
+    (0.5·W, 0.5·H). `t_eps` overrides the early-termination threshold.
+    With `tile_band=(row0, n_rows)` only that horizontal band of tiles is
+    rasterized: `image` and `final_t` are [.., n_rows·16, W], rows past the
+    image render background (every band has the same shape), and `radii`
+    and `visibility` say which gaussians touch the band."""
     tiles_x = (width + TILE - 1) // TILE
     tiles_y = (height + TILE - 1) // TILE
+    row0 = 0 if tile_band is None else tile_band[0]
+    band_rows = tiles_y if tile_band is None else tile_band[1]
+    band_h = height if tile_band is None else band_rows * TILE
     proj = project_gaussians(means3d, scales, quats, world_view, full_proj,
                              tanfovx, tanfovy, width, height, TILE,
-                             scale_modifier, valid=valid, opacities=opacities)
+                             scale_modifier, valid=valid, opacities=opacities,
+                             tile_band=tile_band)
     if screen_dummy is not None:
         ndc_scale = torch.tensor([0.5 * width, 0.5 * height],
                                  dtype=means3d.dtype, device=means3d.device)
         proj = proj._replace(means2d=proj.means2d + screen_dummy * ndc_scale)
-    inst = expand_and_sort(proj, tiles_x, tiles_y)
+    inst = expand_and_sort(proj, tiles_x, band_rows, row0)
     img, final_t = _TileBlend.apply(
         splat_rows(proj, colors, opacities), inst.gauss_ids, inst.tile_bounds,
-        width, height, T_EPS if t_eps is None else t_eps)
+        width, band_h, T_EPS if t_eps is None else t_eps, row0)
     image = img + final_t[None] * bg[:, None, None]
     return RasterOutput(image=image, final_t=final_t, radii=proj.radii,
                         visibility=proj.radii > 0, overflowed=False,

@@ -144,7 +144,7 @@ blend_backward_kernel(const float* __restrict__ rows,
                       const int* __restrict__ last_contrib,
                       const float* __restrict__ d_rgb,
                       const float* __restrict__ d_final_t,
-                      int width, int height, int tiles_x,
+                      int width, int height, int tiles_x, int row_offset,
                       float* __restrict__ d_rows) {
   __shared__ int s_id[kPix];
   __shared__ float2 s_xy[kPix];
@@ -159,10 +159,13 @@ blend_backward_kernel(const float* __restrict__ rows,
   const int lane = threadIdx.x;
   const int wl = lane & 31;
   const int warp = lane >> 5;
+  // a band's tiles start at tile row row_offset of the image (as K1's);
+  // ly is the pixel's row in the band's cotangents and outputs
   const int x0 = (tile % tiles_x) * kTile;
-  const int y0 = (tile / tiles_x) * kTile;
+  const int y0 = (row_offset + tile / tiles_x) * kTile;
   const int px = x0 + lane % kTile;
   const int py = y0 + lane / kTile;
+  const int ly = py - row_offset * kTile;
   const float fx = static_cast<float>(px);
   const float fy = static_cast<float>(py);
   // the component a leader lane sums in the reduce-scatter
@@ -175,8 +178,8 @@ blend_backward_kernel(const float* __restrict__ rows,
   float dr = 0.0f, dg = 0.0f, db = 0.0f;
   float q = 0.0f;     // C . dL/dC
   float gtf = 0.0f;   // dL/dT_final T_final
-  if (px < width && py < height) {
-    const int p = py * width + px;
+  if (px < width && ly < height) {
+    const int p = ly * width + px;
     const int plane = width * height;
     last = last_contrib[p];
     dr = d_rgb[p];
@@ -311,15 +314,17 @@ blend_backward_kernel(const float* __restrict__ rows,
 // rows [G,9] f32, gauss_ids [B] i32, tile_bounds [n_tiles+1] i32; K1's
 // rgb [3,H,W] f32, final_t [H,W] f32, last_contrib [H,W] i32; cotangents
 // d_rgb [3,H,W] f32, d_final_t [H,W] f32; d_rows [G,9] f32, zeroed by the
-// caller and accumulated here.
+// caller and accumulated here. With a band, the tiles start at tile row
+// `row_offset` and H is the band's height, as in blend_forward.
 extern "C" int blend_backward(const float* rows, const int* gauss_ids,
                               const int* tile_bounds, const float* rgb,
                               const float* final_t, const int* last_contrib,
                               const float* d_rgb, const float* d_final_t,
                               int width, int height, int tiles_x, int n_tiles,
-                              float* d_rows, cudaStream_t stream) {
+                              int row_offset, float* d_rows,
+                              cudaStream_t stream) {
   blend_backward_kernel<<<n_tiles, kPix, 0, stream>>>(
       rows, gauss_ids, tile_bounds, rgb, final_t, last_contrib, d_rgb,
-      d_final_t, width, height, tiles_x, d_rows);
+      d_final_t, width, height, tiles_x, row_offset, d_rows);
   return static_cast<int>(cudaGetLastError());
 }

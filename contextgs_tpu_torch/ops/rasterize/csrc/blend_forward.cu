@@ -143,8 +143,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 blend_forward_kernel(const float* __restrict__ rows,
                      const int* __restrict__ gauss_ids,
                      const int* __restrict__ tile_bounds,
-                     int width, int height, int tiles_x, float t_eps,
-                     float* __restrict__ rgb, float* __restrict__ final_t,
+                     int width, int height, int tiles_x, int row_offset,
+                     float t_eps, float* __restrict__ rgb,
+                     float* __restrict__ final_t,
                      int* __restrict__ last_contrib) {
   __shared__ Shared sh;
 
@@ -154,6 +155,11 @@ blend_forward_kernel(const float* __restrict__ rows,
   const int warp = tid >> 5;
   const int start = tile_bounds[tile];
   const int end = tile_bounds[tile + 1];
+  // the tile's pixel rows in the image: a band's tiles start at tile row
+  // row_offset, in integers, so that a pixel's float coordinates and its
+  // dx, dy are those of the same pixel rendered without a band
+  const int tile_y0 = (row_offset + tile / tiles_x) * kTile;
+  const int band_y0 = row_offset * kTile;
 
   bool done[kPerThread];
   float fx[kPerThread], fy[kPerThread], T[kPerThread];
@@ -163,9 +169,9 @@ blend_forward_kernel(const float* __restrict__ rows,
   for (int k = 0; k < kPerThread; ++k) {
     const int px = (tile % tiles_x) * kTile + kWarpW * (warp % kWarpCols) +
                    (wl + k * (kWarpW / 2)) % kWarpW;
-    const int py = (tile / tiles_x) * kTile + kWarpH * (warp / kWarpCols) +
-                   wl / kWarpW + k * kLaneRows;
-    done[k] = !(px < width && py < height);
+    const int py = tile_y0 + kWarpH * (warp / kWarpCols) + wl / kWarpW +
+                   k * kLaneRows;
+    done[k] = !(px < width && py - band_y0 < height);
     fx[k] = static_cast<float>(px);
     fy[k] = static_cast<float>(py);
     T[k] = 1.0f;
@@ -190,7 +196,7 @@ blend_forward_kernel(const float* __restrict__ rows,
         float tau;
         const float4 box = alpha_footprint(mx, my, a, b, c, op, &tau);
         const float x0 = static_cast<float>((tile % tiles_x) * kTile);
-        const float y0 = static_cast<float>((tile / tiles_x) * kTile);
+        const float y0 = static_cast<float>(tile_y0);
         unsigned warps = 0;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) {
@@ -262,9 +268,10 @@ blend_forward_kernel(const float* __restrict__ rows,
   const int plane = width * height;
 #pragma unroll
   for (int k = 0; k < kPerThread; ++k) {
-    // the pixel again from its coordinates, exact in float32
+    // the pixel again from its coordinates, exact in float32; its row in
+    // the band's outputs
     const int px = static_cast<int>(fx[k]);
-    const int py = static_cast<int>(fy[k]);
+    const int py = static_cast<int>(fy[k]) - band_y0;
     if (px < width && py < height) {
       const int i = py * width + px;
       rgb[i] = cr[k];
@@ -280,14 +287,16 @@ blend_forward_kernel(const float* __restrict__ rows,
 
 // Launches K1 on `stream`; returns the cudaError_t of the launch (0 = ok).
 // rows [G,9] f32, gauss_ids [B] i32, tile_bounds [n_tiles+1] i32;
-// rgb [3,H,W] f32, final_t [H,W] f32, last_contrib [H,W] i32.
+// rgb [3,H,W] f32, final_t [H,W] f32, last_contrib [H,W] i32. With a band
+// (the Pallas kernel's row_offset), the tiles are the band's, starting at
+// tile row `row_offset` of the image, and H is the band's height.
 extern "C" int blend_forward(const float* rows, const int* gauss_ids,
                              const int* tile_bounds, int width, int height,
-                             int tiles_x, int n_tiles, float t_eps, float* rgb,
-                             float* final_t, int* last_contrib,
-                             cudaStream_t stream) {
+                             int tiles_x, int n_tiles, int row_offset,
+                             float t_eps, float* rgb, float* final_t,
+                             int* last_contrib, cudaStream_t stream) {
   blend_forward_kernel<<<n_tiles, kThreads, 0, stream>>>(
-      rows, gauss_ids, tile_bounds, width, height, tiles_x, t_eps, rgb,
-      final_t, last_contrib);
+      rows, gauss_ids, tile_bounds, width, height, tiles_x, row_offset, t_eps,
+      rgb, final_t, last_contrib);
   return static_cast<int>(cudaGetLastError());
 }

@@ -44,8 +44,12 @@ def project_gaussians(
     valid: torch.Tensor | None = None,      # [G] bool; False → force-cull
     opacities: torch.Tensor | None = None,  # [G]; enables the tight
                                             # opacity-aware ellipse-bbox rect
+    tile_band: tuple | None = None,         # (row0, n_rows): clamp rects to a
+                                            # horizontal tile band
 ) -> ProjectedGaussians:
-    """EWA-project all gaussians to screen space."""
+    """EWA-project all gaussians to screen space. With `tile_band`, the
+    rects are clamped to that band's tile rows (multi-GPU tile sharding); a
+    gaussian that misses the band gets radius 0."""
     tanfovx, tanfovy = float(tanfovx), float(tanfovy)
     G = means3d.shape[0]
     ones = torch.ones((G, 1), dtype=means3d.dtype, device=means3d.device)
@@ -133,6 +137,13 @@ def project_gaussians(
     # --- tile rect (getRect semantics: min inclusive, max exclusive) ---
     tiles_x = (width + tile_size - 1) // tile_size
     tiles_y = (height + tile_size - 1) // tile_size
+    row_lo, row_hi = 0, tiles_y
+    if tile_band is not None:
+        # bands may lie partly or wholly below the image (every rank's
+        # shapes agree); the clamp keeps lo <= hi, and a band wholly
+        # outside gets empty rects
+        row_lo = min(tile_band[0], tiles_y)
+        row_hi = min(tile_band[0] + tile_band[1], tiles_y)
     m2i = means2d.detach()
     r = radius_f.detach()
     if opacities is not None:
@@ -150,13 +161,14 @@ def project_gaussians(
     # .to(int32) truncates toward zero, as astype(int32) does in the reference
     rect_min = torch.stack([
         torch.clamp(((m2i[:, 0] - rx) / tile_size).to(torch.int32), 0, tiles_x),
-        torch.clamp(((m2i[:, 1] - ry) / tile_size).to(torch.int32), 0, tiles_y),
+        torch.clamp(((m2i[:, 1] - ry) / tile_size).to(torch.int32), row_lo,
+                    row_hi),
     ], dim=-1)
     rect_max = torch.stack([
         torch.clamp(((m2i[:, 0] + rx + tile_size - 1) / tile_size).to(torch.int32),
                     0, tiles_x),
         torch.clamp(((m2i[:, 1] + ry + tile_size - 1) / tile_size).to(torch.int32),
-                    0, tiles_y),
+                    row_lo, row_hi),
     ], dim=-1)
 
     keep = det_ok & (depths > 0.2)

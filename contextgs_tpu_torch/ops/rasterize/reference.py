@@ -48,10 +48,11 @@ def _tile_groups(lens: list, pix: int, max_elems: int):
 
 
 def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
-                 width, height, t_eps, pairs):
+                 width, height, t_eps, pairs, row_offset=0):
     """Blend tiles [t0, t1), lists padded to L → (rgb [3,nt,pix], final_T
     [nt,pix], last_contrib [nt,pix]); adds the group's pair counts to
-    `pairs` unless it is None."""
+    `pairs` unless it is None. The tiles are those of a band that starts at
+    tile row `row_offset` of the image, `height` rows high."""
     dev = rows.device
     pix = tile_size * tile_size
     kx = torch.arange(pix, device=dev) % tile_size
@@ -62,7 +63,9 @@ def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
     idx = torch.where(valid, bounds[t0:t1, None] + pos[None, :], 0)
     r = rows[gauss_ids[idx].to(torch.int64)]              # [nt, L, 9]
     px = ((t % tiles_x) * tile_size)[:, None] + kx[None, :]
-    py = ((t // tiles_x) * tile_size)[:, None] + ky[None, :]
+    # integer pixel rows of the image, as K1's: the band's offset is added
+    # before the coordinate becomes a float
+    py = ((t // tiles_x + row_offset) * tile_size)[:, None] + ky[None, :]
     dx = r[..., 0, None] - px[:, None, :].to(rows.dtype)  # [nt, L, pix]
     dy = r[..., 1, None] - py[:, None, :].to(rows.dtype)
     power = gaussian_power(dx, dy, r[..., 2, None], r[..., 3, None],
@@ -87,7 +90,7 @@ def _blend_group(rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size,
         fail = (alpha > 0) & ~include
         n_eval = torch.where(fail.any(1), fail.to(torch.int8).argmax(1) + 1,
                              valid.sum(1, keepdim=True))
-        inside = (px < width) & (py < height)
+        inside = (px < width) & (py - row_offset * tile_size < height)
         walked = (pos[None, :, None] < n_eval[:, None, :]) & inside[:, None]
         for key, mask in (("evaluated", walked),
                           ("exp", walked & exp_taken),
@@ -200,7 +203,7 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
                           tile_bounds: torch.Tensor, width: int, height: int,
                           tiles_x: int, tile_size: int = 16,
                           t_eps: float = T_EPS, max_elems: int = MAX_ELEMS,
-                          count_pairs: bool = False):
+                          count_pairs: bool = False, row_offset: int = 0):
     """rows [G,9] (mean x, y, conic a, b, c, opacity, r, g, b), gauss_ids [B]
     in (tile, depth) order, tile_bounds [n_tiles+1] →
     (rgb [3,H,W], final_T [H,W], last_contrib [H,W] int32).
@@ -222,7 +225,11 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
     `bwd_tile_blended`, the (tile, instance) pairs with one, each of which
     costs K2 up to nine global atomics, and `bwd_warp_touched`, the (warp,
     instance) pairs before the warp's largest last_contrib that K2's
-    footprint cull keeps."""
+    footprint cull keeps.
+
+    With `row_offset`, the tiles are the band of tiles from that tile row
+    of the image on (the Pallas kernels' `row_offset`), `height` is the
+    band's height and the outputs hold the band's rows."""
     dev = rows.device
     n_tiles = tile_bounds.numel() - 1
     pix = tile_size * tile_size
@@ -237,8 +244,9 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
             continue
         rgb_t[:, t0:t1], final_t[t0:t1], last_t[t0:t1] = _blend_group(
             rows, gauss_ids, bounds, t0, t1, L, tiles_x, tile_size, width,
-            height, t_eps, pairs)
-    out = tuple(_untile(x, tiles_x, tile_size, width, height)
+            height, t_eps, pairs, row_offset)
+    # contiguous, as the kernel's outputs: K2's wrapper takes only those
+    out = tuple(_untile(x, tiles_x, tile_size, width, height).contiguous()
                 for x in (rgb_t, final_t, last_t))
     return out + (pairs,) if count_pairs else out
 
@@ -246,7 +254,7 @@ def blend_tiles_reference(rows: torch.Tensor, gauss_ids: torch.Tensor,
 def blend_tiles_backward_reference(rows, gauss_ids, tile_bounds, rgb, final_t,
                                    last_contrib, d_rgb, d_final_t, width: int,
                                    height: int, t_eps: float = T_EPS,
-                                   tile_size: int = 16,
+                                   row_offset: int = 0, tile_size: int = 16,
                                    max_elems: int = MAX_ELEMS) -> torch.Tensor:
     """dL/d rows [G,9] of `blend_tiles_reference` for the cotangents d_rgb
     [3,H,W] and d_final_t [H,W]: the plain version of K2, with the same
@@ -273,7 +281,7 @@ def blend_tiles_backward_reference(rows, gauss_ids, tile_bounds, rgb, final_t,
             r = rows.detach().requires_grad_(True)
             rgb_g, ft_g, _ = _blend_group(r, gauss_ids, bounds, t0, t1, L,
                                           tiles_x, tile_size, width, height,
-                                          t_eps, None)
+                                          t_eps, None, row_offset)
             s = ((rgb_g * d_rgb_t[:, t0:t1]).sum()
                  + (ft_g * d_ft_t[t0:t1]).sum())
             d_rows += torch.autograd.grad(s, r)[0]
@@ -283,15 +291,21 @@ def blend_tiles_backward_reference(rows, gauss_ids, tile_bounds, rgb, final_t,
 def blend_reference(proj: ProjectedGaussians, inst: TileInstances,
                     colors: torch.Tensor, opacities: torch.Tensor,
                     width: int, height: int, tile_size: int = 16,
-                    bg: torch.Tensor | None = None, t_eps: float = T_EPS):
-    """(image [3,H,W], final transmittance [H,W]), the JAX signature.
+                    bg: torch.Tensor | None = None,
+                    tile_row_offset: int = 0,
+                    band_height: int | None = None, t_eps: float = T_EPS):
+    """(image [3,H,W], final transmittance [H,W]), the JAX signature: with
+    a tile band, H is the band height and pixel rows start at
+    tile_row_offset·tile_size.
 
     `t_eps` overrides the early-termination threshold, as in the reference."""
     tiles_x = _tiles_x(width, tile_size)
+    if band_height is None:
+        band_height = height - tile_row_offset * tile_size
     rows = torch.cat([proj.means2d, proj.conics, opacities[:, None], colors], 1)
     image, final_t, _ = blend_tiles_reference(
-        rows, inst.gauss_ids, inst.tile_bounds, width, height, tiles_x,
-        tile_size, t_eps)
+        rows, inst.gauss_ids, inst.tile_bounds, width, band_height, tiles_x,
+        tile_size, t_eps, row_offset=tile_row_offset)
     if bg is not None:
         image = image + final_t[None] * bg[:, None, None]
     return image, final_t

@@ -32,9 +32,12 @@ class TileInstances(NamedTuple):
     n_vis: torch.Tensor        # [] int64 gaussians touching >= 1 tile
 
 
-def expand_and_sort(proj: ProjectedGaussians, tiles_x: int,
-                    tiles_y: int) -> TileInstances:
-    """Build the (tile, depth)-sorted tile-instance list."""
+def expand_and_sort(proj: ProjectedGaussians, tiles_x: int, tiles_y: int,
+                    tile_row_offset: int = 0) -> TileInstances:
+    """Build the (tile, depth)-sorted tile-instance list. With
+    `tile_row_offset`, tile ids are local to a horizontal band of `tiles_y`
+    tile rows starting at that row (the rects must already be clamped to
+    the band by the projection)."""
     dev = proj.depths.device
     n_tiles = tiles_x * tiles_y
     counts_g = proj.n_tiles.to(torch.int64)
@@ -54,7 +57,8 @@ def expand_and_sort(proj: ProjectedGaussians, tiles_x: int,
     rect_w = (proj.rect_max[:, 0].to(torch.int64)
               - proj.rect_min[:, 0].to(torch.int64))[g]
     ty = torch.div(k, rect_w, rounding_mode="floor")
-    tile = (rmin[:, 1] + ty) * tiles_x + rmin[:, 0] + (k - ty * rect_w)
+    tile = ((rmin[:, 1] - tile_row_offset + ty) * tiles_x + rmin[:, 0]
+            + (k - ty * rect_w))
 
     tile_sorted, perm = torch.sort(tile, stable=True)
     gauss_ids = g[perm].to(torch.int32)

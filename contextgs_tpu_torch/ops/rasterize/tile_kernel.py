@@ -10,6 +10,12 @@ raises; on a CPU tensor it runs the kernel's plain version,
 `reference.blend_tiles_backward_reference`. It never falls back from one to
 the other. `launches` and `backward_launches` count the kernels' launches in
 this process.
+
+Both take the Pallas kernels' `row_offset`: the tiles are then a horizontal
+band of the image that starts at that tile row, `height` is the band's
+height and the outputs hold the band's rows. The offset enters the pixel
+coordinates in integer tile arithmetic, so a banded pixel blends the same
+float32 values as the same pixel without a band.
 """
 
 from __future__ import annotations
@@ -29,9 +35,9 @@ BACKWARD_SOURCE = SOURCE.with_name("blend_backward.cu")
 SOURCES = (SOURCE, BACKWARD_SOURCE)
 TILE = 16          # the kernels' tile side: one 256-thread block per tile
 ROW = 9            # mean xy, conic abc, opacity, rgb
-FORWARD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+FORWARD_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                     + [ctypes.c_float] + [ctypes.c_void_p] * 4)
-BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+BACKWARD_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
                      + [ctypes.c_void_p] * 2)
 
 launches = 0
@@ -76,17 +82,19 @@ def _check_lists(name, rows, gauss_ids, tile_bounds, n_tiles, width, height):
 
 def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
                   tile_bounds: torch.Tensor, width: int, height: int,
-                  t_eps: float = T_EPS):
+                  t_eps: float = T_EPS, row_offset: int = 0):
     """rows [G,9] f32, gauss_ids [B] i32 in (tile, depth) order, tile_bounds
     [n_tiles+1] i32 over 16x16 tiles → (rgb [3,H,W], final_T [H,W],
-    last_contrib [H,W] i32)."""
+    last_contrib [H,W] i32); with `row_offset`, the band of tiles from that
+    tile row on."""
     global launches
     tiles_x, n_tiles = _grid(width, height)
     _check_lists("blend_forward", rows, gauss_ids, tile_bounds, n_tiles,
                  width, height)
     if rows.device.type == "cpu":
         return blend_tiles_reference(rows, gauss_ids, tile_bounds, width,
-                                     height, tiles_x, TILE, t_eps)
+                                     height, tiles_x, TILE, t_eps,
+                                     row_offset=row_offset)
     rgb = torch.empty((3, height, width), dtype=torch.float32,
                       device=rows.device)
     final_t = torch.empty((height, width), dtype=torch.float32,
@@ -97,7 +105,8 @@ def blend_forward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     fn = c_function(SOURCE, "blend_forward", FORWARD_ARGTYPES)
     err = launch(fn, rows.device, rows.data_ptr(), gauss_ids.data_ptr(),
                  tile_bounds.data_ptr(), width, height, tiles_x, n_tiles,
-                 t_eps, rgb.data_ptr(), final_t.data_ptr(), last.data_ptr())
+                 row_offset, t_eps, rgb.data_ptr(), final_t.data_ptr(),
+                 last.data_ptr())
     if err != 0:
         raise RuntimeError(f"blend_forward: kernel launch failed with CUDA "
                            f"error {err}")
@@ -109,7 +118,8 @@ def blend_backward(rows: torch.Tensor, gauss_ids: torch.Tensor,
                    tile_bounds: torch.Tensor, rgb: torch.Tensor,
                    final_t: torch.Tensor, last_contrib: torch.Tensor,
                    d_rgb: torch.Tensor, d_final_t: torch.Tensor, width: int,
-                   height: int, t_eps: float = T_EPS) -> torch.Tensor:
+                   height: int, t_eps: float = T_EPS,
+                   row_offset: int = 0) -> torch.Tensor:
     """The gradient of `blend_forward`: its inputs and outputs, and the
     cotangents d_rgb [3,H,W] and d_final_t [H,W] f32 → d_rows [G,9] f32.
 
@@ -129,7 +139,7 @@ def blend_backward(rows: torch.Tensor, gauss_ids: torch.Tensor,
     if rows.device.type == "cpu":
         return blend_tiles_backward_reference(
             rows, gauss_ids, tile_bounds, rgb, final_t, last_contrib, d_rgb,
-            d_final_t, width, height, t_eps, TILE)
+            d_final_t, width, height, t_eps, row_offset, TILE)
     d_rows = torch.zeros_like(rows)
     if n_tiles == 0:
         return d_rows
@@ -138,7 +148,7 @@ def blend_backward(rows: torch.Tensor, gauss_ids: torch.Tensor,
                  tile_bounds.data_ptr(), rgb.data_ptr(), final_t.data_ptr(),
                  last_contrib.data_ptr(), d_rgb.data_ptr(),
                  d_final_t.data_ptr(), width, height, tiles_x, n_tiles,
-                 d_rows.data_ptr())
+                 row_offset, d_rows.data_ptr())
     if err != 0:
         raise RuntimeError(f"blend_backward: kernel launch failed with CUDA "
                            f"error {err}")

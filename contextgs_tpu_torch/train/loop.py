@@ -58,6 +58,7 @@ class TrainerState:
     iteration: int = 0
     rng: np.random.Generator = field(
         default_factory=lambda: np.random.default_rng(0))
+    ranks: list = field(default_factory=list)   # sharded runs: per rank
 
 
 @torch.no_grad()

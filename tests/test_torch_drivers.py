@@ -210,8 +210,9 @@ def test_warmup_profile_and_anomaly_flags(scene, tmp_path):
     (train_driver.main, ["--budget", "4096"], "no instance budget"),
     (train_driver.main, ["--train_vis_cap", "100"], "no visible cap"),
     (train_driver.main, ["--backend", "pallas"], "plain versions on CPU"),
-    (train_driver.main, ["--mesh", "4"], "multi-GPU"),
-    (train_driver.main, ["--mesh_force_cpu"], "multi-GPU"),
+    (train_driver.main, ["--mesh", "4", "--profile_steps", "2"],
+     "processes of their own"),
+    (train_driver.main, ["--mesh_force_cpu"], "without --mesh"),
     (train_driver.main, ["--gui"], "viewer"),
     (train_driver.main, ["--ip", "0.0.0.0"], "viewer"),
     (train_driver.main, ["--port", "6010"], "viewer"),

@@ -195,7 +195,8 @@ def test_port_imports_no_jax():
             "kvariants.py", "xpose_lab.py", "codec.py", "coder.py",
             "png.py", "lpips.py", "tboard.py", "snapshot.py", "colmap.py",
             "train.py", "decompress.py", "bench.py",
-            "make_synth_scene.py"} <= {path.name for path in files}
+            "make_synth_scene.py", "comm.py", "sharded.py",
+            "sharded_loop.py"} <= {path.name for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):

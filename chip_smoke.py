@@ -113,6 +113,19 @@ after every phase has held.
    where its copy is present, with the shuffles and global atomics of both
    designs counted from the pair counts; and k2_knockouts: K2 beside its
    knock-outs on the serve view (no reduce-scatter; no cull).
+5b. viewer — the live SIBR viewer on the train cell's final model at
+   1280x720 (viewer_phase): a loopback client sends the camera messages of
+   4 orbit cameras as SIBR sends them (transposed, columns negated), one
+   at each of steps 15, 45 and 90 (plain, noise, context) and one at step
+   90 with scaling_modifier 0.5; utils/viewer.ViewerServer.poll serves each
+   with drivers.train.viewer_render. K1's count set to 0 before each poll
+   and read after. Exact: each frame H·W·3 bytes and the verify string,
+   equal to the bytes of a direct render (same phase, level maps and
+   generator seed), the MiniCam from the wire within 1e-6 of the camera,
+   K1 once a frame; K1 within 2e-4 (mean 1e-6) of its plain version on the
+   context frame; the half-scale frame unlike the same camera at full
+   scale. Printed: ms a frame (CUDA events around viewer_render) and a
+   poll (host clock), median.
 6. codec — the train cell's final model encoded at full width
    (encode_scene into a temporary directory, removed after), decoded
    (decode_scene) and encoded again; the decoded scene served over the
@@ -159,6 +172,15 @@ after every phase has held.
    estimate, ms a view of the decoded scene over all 48 views (the first
    5 left out), each driver's and the phase's seconds, and the bench's
    line.
+   tools (tools_phase, on the drivers' model directory before it is
+   removed): scripts.codec_diag on its newest checkpoint, whose payload
+   and escape bits per stream must equal 8 x the bytes of that stream's
+   files in the train driver's bitstreams (n_sym > 0; the table and
+   act/ideal printed beside the model's estimate); scripts.collect_results
+   over the directory (its rows = results.json's variants and PSNR);
+   scripts.sweep over λ 0.004 and 0.0005 on a 128x128, 16-view, 1k-point
+   synthetic scene, 100 steps each (each run a drivers.train process on
+   the card): both exit 0 with a results.json (size and PSNR printed).
 6c. sharded — multi-GPU training (parallel/, train/sharded_loop.py),
    after k2_knockouts. offset_turns, where build/prev_offset holds K1's
    and K2's sources from before the row offset (blend_forward_nooffset.cu,
@@ -185,10 +207,22 @@ after every phase has held.
    grown; printed: ms a step per phase per rank, the splat gather's bytes
    and ms a step, the reshards' seconds, peak memory per rank.
    sharded_driver: drivers.train --mesh 1 over NCCL on the drivers phase's
-   scene (made again, 300 steps), drivers.decompress and drivers.test;
+   scene (made again, 150 steps), drivers.decompress and drivers.test;
    "decoded" and "ours_from_ckpt" equal to "ours", the rank's K1 and K2
    once a step, K1 once a decoded test view in each driver; the decoded
    PSNR beside the drivers phase's.
+6d. growth_parity — scripts.growth_parity --devices 2 --points 20000
+   --keys 3 (one densify on the JAX script's seeded state, single process
+   on the card against 2 ranks sharing it over gloo, plus the host dedup):
+   no overflow, anchors grown on every key, the single column equal to the
+   same call on the CPU with the same draws; the table and the mean delta
+   printed. scaling — scripts.scaling_bench's measure at 512x512, 20k
+   points, 8 warm-up and 8 timed steps of the sharded context step, at
+   world size 1 over NCCL and 2 over gloo sharing the card: each rank's K1
+   and K2 once a step, the loss finite, no foreign module in a rank, and
+   each rank's last K1 and K2 call (its band, by its row offset) against
+   the plain versions on the same inputs (K1 within 2e-4, mean 1e-6; K2
+   inside the plain envelope); Mpix/s printed.
 7. k3_bound — K3, its plain version and torch.cumsum (the library call)
    timed by CUDA events over back-to-back calls (K3 and torch.cumsum in
    turns, and by the host's clock per call), and K3 and torch.cumsum by the
@@ -205,9 +239,10 @@ after every phase has held.
    and k4_uneven_tiles (8x450 over 1x3600); xpose_lab (xpose_lab.run_all:
    K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
    the slab transpose's byte bound.
-9. the `kernels` line (K1's launches: serve, train, codec,
-   make_synth_scene, drivers, bench, sharded_bands, sharded_train and
-   sharded_driver; K2's: train, drivers, bench and the sharded three),
+9. the `kernels` line (K1's launches: serve, train, viewer, codec,
+   make_synth_scene, drivers, bench, sharded_bands, sharded_train,
+   sharded_driver and scaling_bench; K2's: train, drivers, bench, the
+   sharded three and scaling_bench),
    then the card line from nvidia-smi, then the result.
 """
 
@@ -2066,6 +2101,13 @@ def drivers_phase(dev):
         seconds["bench"] = time.perf_counter() - t0
         k1_bench, k2_bench = counts()
         bench_line = json.loads(out.getvalue().strip().splitlines()[-1])
+
+        # the tool scripts on this model directory, before it is removed
+        begin("tools")
+        t0 = time.perf_counter()
+        tools_phase(root, model, train_bits, estimate_mb)
+        seconds["tools"] = time.perf_counter() - t0
+        begin("drivers")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2168,13 +2210,13 @@ def drivers_phase(dev):
 SHARD_BANDS = (2, 4)
 SHARD_RANKS = 2
 SHARD_TIMEOUT = 900                  # seconds the ranks may take
-MESH_STEPS = 300
-MESH_SCHEDULE = ["--iterations", str(MESH_STEPS), "--noise_from", "100",
-                 "--context_from", "200", "--start_stat", "25",
-                 "--update_from", "25", "--update_interval", "50",
-                 "--update_until", "251", "--checkpoint_iterations",
+MESH_STEPS = 150
+MESH_SCHEDULE = ["--iterations", str(MESH_STEPS), "--noise_from", "50",
+                 "--context_from", "100", "--start_stat", "12",
+                 "--update_from", "12", "--update_interval", "25",
+                 "--update_until", "126", "--checkpoint_iterations",
                  str(MESH_STEPS)]
-MESH_PHASES = dict(plain=(6, 100), noise=(101, 200), context=(201, 300))
+MESH_PHASES = dict(plain=(6, 50), noise=(51, 100), context=(101, 150))
 SHARD_PHASES = dict(plain=(6, 30), noise=(31, 60), context=(61, 90))
 
 
@@ -2498,6 +2540,377 @@ def sharded_phase(tcfg, scene, single, serve_k1, train_k1, dev,
     launches["sharded_driver"] = mesh_driver_phase(dev, drivers_psnr)
     return ({k: v[0] for k, v in launches.items()},
             {k: v[1] for k, v in launches.items()})
+
+
+# the viewer phase: (step, scaling modifier) of each frame, one orbit camera
+# a frame: the plain, noise and context steps of TRAIN_PHASES, and the last
+# step again at half scale
+VIEWER_FRAMES = ((15, 1.0), (45, 1.0), (90, 1.0), (90, 0.5))
+
+
+def sibr_message(cam, scaling, train=True, keep_alive=False):
+    """The camera message a SIBR remote viewer sends for `cam`: its
+    matrices transposed already, in the viewer's flipped-axis convention
+    (columns 1, 2 of the view and column 1 of the view-projection
+    negated), length-prefixed JSON."""
+    wv = cam.world_view.copy()
+    wv[:, 1] = -wv[:, 1]
+    wv[:, 2] = -wv[:, 2]
+    vp = cam.full_proj.copy()
+    vp[:, 1] = -vp[:, 1]
+    data = json.dumps(dict(
+        resolution_x=cam.width, resolution_y=cam.height, train=train,
+        fov_x=cam.fov_x, fov_y=cam.fov_y, z_near=cam.znear, z_far=cam.zfar,
+        shs_python=False, rot_scale_python=False, keep_alive=keep_alive,
+        scaling_modifier=scaling,
+        view_matrix=[float(x) for x in wv.reshape(-1)],
+        view_projection_matrix=[float(x) for x in vp.reshape(-1)])).encode()
+    return len(data).to_bytes(4, "little") + data
+
+
+def direct_frame(ts, tcfg, it, cam, scaling):
+    """The uint8 frame of `cam` rendered directly (models/renderer.render)
+    with the phase, level maps and generator seed the viewer uses."""
+    from contextgs_tpu_torch.models import state as tst
+    from contextgs_tpu_torch.models.levels import build_level_maps
+    from contextgs_tpu_torch.models.renderer import render
+    from contextgs_tpu_torch.train.loop import phase_of
+
+    p, b = ts.model.params, ts.model.buffers
+    phase, maps = phase_of(it, tcfg), None
+    if phase == "context":
+        maps = build_level_maps(tst.get_anchor(p, b), b.alive, ts.voxel_size,
+                                tuple(ts.level_scales), tcfg.model.level_num)
+    with torch.no_grad():
+        out = render(p, b, tcfg.model, tcfg.opt, tcfg.pipe,
+                     cam.as_device_dict(), cam.width, cam.height,
+                     torch.zeros(3),
+                     torch.Generator(p.anchor.device).manual_seed(0),
+                     phase=phase, training=False, maps=maps,
+                     scale_modifier=scaling)
+    img = out.image.clamp(0.0, 1.0).permute(1, 2, 0).cpu().numpy()
+    return (np.clip(img, 0.0, 1.0) * 255 + 0.5).astype(np.uint8).tobytes()
+
+
+def viewer_phase(ts, tcfg):
+    """The live viewer on the train cell's final model at 1280x720: a
+    loopback SIBR client asks ViewerServer.poll for one frame at each of
+    VIEWER_FRAMES (its own orbit camera each), which
+    drivers.train.viewer_render draws through K1. K1's count is set to 0
+    before each poll and read after. Exact: every frame whole (H·W·3 bytes
+    and the verify string), equal to the direct render's bytes, the MiniCam
+    from the wire within 1e-6 of the camera's matrices, K1 once a frame;
+    K1 within 2e-4 (mean 1e-6) of its plain version on the context frame;
+    the half-scale frame unlike the same camera at full scale. Returns K1's
+    launches."""
+    import socket
+    import threading
+
+    import contextgs_tpu_torch.ops.rasterize as trz
+    from contextgs_tpu_torch.drivers import train as train_driver
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+    from contextgs_tpu_torch.train.loop import phase_of
+    from contextgs_tpu_torch.utils.viewer import (ViewerServer,
+                                                  _recv_exact as recv_exact)
+
+    cams = orbit_cameras(len(VIEWER_FRAMES), W, H, 3)
+    verify = "/contextgs/viewer-smoke"
+    server = ViewerServer("127.0.0.1", 0)
+    client = socket.create_connection(("127.0.0.1", server.port), timeout=120)
+    frames, seen, launches, frame_ms, poll_ms, k1_in = [], [], [], [], [], {}
+    try:
+        for i, ((it, scaling), cam) in enumerate(zip(VIEWER_FRAMES, cams)):
+            got = {}
+
+            def read(cam=cam, got=got):
+                try:
+                    got["frame"] = recv_exact(client, H * W * 3)
+                    n = int.from_bytes(recv_exact(client, 4), "little")
+                    got["verify"] = recv_exact(client, n).decode()
+                except Exception as exc:        # reported by the gates
+                    got["error"] = repr(exc)
+
+            def render_rgb(mc, smod, it=it):
+                seen.append(mc)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                img = train_driver.viewer_render(ts, it, tcfg, mc, smod)
+                end.record()
+                out = img.cpu().numpy()
+                frame_ms.append(start.elapsed_time(end))
+                return out
+
+            client.sendall(sibr_message(cam, scaling))
+            reader = threading.Thread(target=read)
+            reader.start()
+            keep = (wrapped(trz, "blend_forward", keep_args(k1_in))
+                    if (it, scaling) == (90, 1.0)
+                    else contextlib.nullcontext())
+            tile_kernel.launches = 0
+            t0 = time.perf_counter()
+            with keep:
+                server.poll(render_rgb, verify, it, TRAIN_STEPS)
+            torch.cuda.synchronize()
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(tile_kernel.launches)
+            reader.join(timeout=120)
+            check(not reader.is_alive() and "error" not in got,
+                  f"viewer frame {i}: {got.get('error', 'client hung')}")
+            frames.append(got)
+    finally:
+        client.close()
+        server.close()
+    direct = [direct_frame(ts, tcfg, it, cam, scaling)
+              for (it, scaling), cam in zip(VIEWER_FRAMES, cams)]
+    full_scale_last = direct_frame(ts, tcfg, VIEWER_FRAMES[-1][0], cams[-1],
+                                   1.0)
+    cam_err = max(max(float(np.abs(mc.world_view - cam.world_view).max()),
+                      float(np.abs(mc.full_proj - cam.full_proj).max()))
+                  for mc, cam in zip(seen, cams))
+    with torch.no_grad():
+        k1 = compare_k1(*k1_in["args"])
+    del k1_in
+    emit(phase="viewer", width=W, height=H, frames=len(frames),
+         steps=[it for it, _ in VIEWER_FRAMES],
+         phases=[phase_of(it, tcfg) for it, _ in VIEWER_FRAMES],
+         scaling=[s for _, s in VIEWER_FRAMES], k1_launches=launches,
+         frame_ms=frame_ms, frame_ms_median=float(np.median(frame_ms)),
+         poll_ms=poll_ms, poll_ms_median=float(np.median(poll_ms)),
+         minicam_max_abs_err=cam_err,
+         equal_to_direct=[f["frame"] == d for f, d in zip(frames, direct)],
+         half_scale_differs=frames[-1]["frame"] != full_scale_last,
+         k1_context_frame=k1)
+    check(len(frames) == len(VIEWER_FRAMES) and all(
+        len(f["frame"]) == H * W * 3 and f["verify"] == verify
+        for f in frames), "viewer: every frame whole, then the verify string")
+    check(len(seen) == len(VIEWER_FRAMES) and cam_err <= 1e-6,
+          "viewer: the MiniCam from the wire is the orbit camera")
+    check(all(f["frame"] == d for f, d in zip(frames, direct)),
+          "viewer: each frame equals the direct render's bytes")
+    check(launches == [1] * len(VIEWER_FRAMES), "viewer: K1 once a frame")
+    check(k1["finite"] and k1["max_abs"] <= 2e-4 and k1["mean_abs"] <= 1e-6,
+          "viewer: K1 on the context frame")
+    check(frames[-1]["frame"] != full_scale_last,
+          "viewer: the half-scale frame differs from the full-scale one")
+    return sum(launches)
+
+
+def tools_phase(root, model, train_bits, estimate_mb):
+    """The tool scripts on the drivers phase's model directory: codec_diag
+    (the newest checkpoint encoded again with the stream audit), whose
+    payload and escape bits per stream must be the bytes of the train
+    driver's {stream}{level}.b files, with symbols coded; collect_results
+    over the directory, whose rows must be results.json's variants and
+    PSNR; sweep over SWEEP_LMBDAS on a small synthetic scene (each run a
+    drivers.train process on the card), both runs exiting 0 with a
+    results.json."""
+    import csv
+
+    from contextgs_tpu_torch.compression.codec import STREAMS
+    from contextgs_tpu_torch.scripts import (codec_diag, collect_results,
+                                             make_synth_scene, sweep)
+
+    seconds = {}
+    t0 = time.perf_counter()
+    table = io.StringIO()
+    diag_json = os.path.join(root, "codec_diag.json")
+    with contextlib.redirect_stdout(table):
+        check(codec_diag.main(["-m", model, "--out", diag_json]) == 0,
+              "codec_diag")
+    seconds["codec_diag"] = time.perf_counter() - t0
+    with open(diag_json) as f:
+        diag = json.load(f)
+    file_bits = {s: 8 * sum(os.path.getsize(os.path.join(train_bits, n))
+                            for n in os.listdir(train_bits)
+                            if re.fullmatch(rf"{s}\d+\.b", n))
+                 for s in STREAMS}
+    audit = {s: dict(coded_bits=diag["streams"][s]["payload_bits"]
+                     + diag["streams"][s]["escape_bits"],
+                     file_bits=file_bits[s], n_sym=diag["streams"][s]["n_sym"],
+                     act_over_ideal=(diag["streams"][s]["payload_bits"]
+                                     + diag["streams"][s]["escape_bits"])
+                     / max(diag["streams"][s]["ideal_bits"], 1e-9),
+                     estimate_mb=estimate_mb.get(s))
+             for s in STREAMS if s in diag["streams"]}
+
+    t0 = time.perf_counter()
+    csv_path = os.path.join(root, "results.csv")
+    with contextlib.redirect_stdout(sys.stderr):
+        check(collect_results.main(["--root", model, "--out", csv_path])
+              == 0, "collect_results")
+    with open(csv_path) as f:
+        rows = list(csv.DictReader(f))
+    with open(os.path.join(model, "results.json")) as f:
+        results = json.load(f)
+    seconds["collect_results"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    data = os.path.join(root, "sweep_data")
+    out = os.path.join(root, "sweep_out")
+    with contextlib.redirect_stdout(sys.stderr):
+        check(make_synth_scene.main(["--out", os.path.join(data, "synth"),
+                                     *SWEEP_SCENE]) == 0,
+              "make_synth_scene (sweep)")
+    log = io.StringIO()
+    # each run is `python -m contextgs_tpu_torch.drivers.train`, found from
+    # the checkout's root
+    with contextlib.redirect_stdout(log), contextlib.chdir(
+            os.path.dirname(os.path.abspath(__file__))):
+        check(sweep.main(["--dataset", "mipnerf360", "--data_root", data,
+                          "--scenes", "synth", "--lmbdas",
+                          *map(str, SWEEP_LMBDAS), "--out", out,
+                          "--iterations", str(SWEEP_STEPS),
+                          "--extra", *SWEEP_SCHEDULE]) == 0, "sweep")
+    seconds["sweep"] = time.perf_counter() - t0
+    runs = {}
+    for lm in SWEEP_LMBDAS:
+        path = os.path.join(out, "mipnerf360", "synth", f"lmbda_{lm}",
+                            "results.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                ours = json.load(f)["ours"]
+            runs[str(lm)] = dict(size_MB=ours["size_MB"], PSNR=ours["PSNR"])
+    failed = [ln for ln in log.getvalue().splitlines()
+              if ln.startswith("FAILED")]
+    emit(phase="tools", codec_diag_table=table.getvalue().splitlines(),
+         codec_diag=audit, collect_results_rows=rows, sweep=runs,
+         sweep_failed=failed, seconds=seconds)
+    for s, a in audit.items():
+        check(a["coded_bits"] == a["file_bits"] and a["n_sym"] > 0,
+              f"codec_diag: {s} payload + escape = its stream files")
+    check(set(audit) == set(STREAMS), "codec_diag: every stream audited")
+    check(sorted((r["variant"], float(r["PSNR"])) for r in rows)
+          == sorted((k, v["PSNR"]) for k, v in results.items()),
+          "collect_results: the rows are results.json's variants and PSNR")
+    check(not failed and len(runs) == len(SWEEP_LMBDAS)
+          and all(math.isfinite(r["PSNR"]) and r["size_MB"] > 0
+                  for r in runs.values()),
+          f"sweep: both runs exit 0 with a results.json ({failed})")
+
+
+# the sweep of the tools phase: a small synthetic scene, two λ, a short
+# three-phase schedule with one densify (about 1.4k anchors: the codec's
+# host CDF build, not the steps, sets a run's time)
+SWEEP_SCENE = ["--res", "128", "--cams", "16", "--gauss", "20000",
+               "--points", "1000"]
+SWEEP_LMBDAS = (0.004, 0.0005)
+SWEEP_STEPS = 100
+SWEEP_SCHEDULE = ["--noise_from", "33", "--context_from", "66",
+                  "--start_stat", "5", "--update_from", "10",
+                  "--update_interval", "20", "--update_until", "30"]
+# growth_parity: the JAX script's state at 20k points, 3 keys, 2 ranks
+# sharing the card over gloo
+GROWTH_ARGV = ["--devices", "2", "--points", "20000", "--keys", "3"]
+
+
+def growth_phase():
+    """scripts.growth_parity on the card (2 ranks sharing it over gloo):
+    its table and the mean delta; gates: no overflow (main raises),
+    single > 0 for each key, and the single column equal to the same call
+    on the CPU with the same draws."""
+    from contextgs_tpu_torch.scripts import growth_parity
+
+    t0 = time.perf_counter()
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        check(growth_parity.main(GROWTH_ARGV) == 0, "growth_parity")
+    seconds = time.perf_counter() - t0
+    lines = table.getvalue().splitlines()
+    keys = int(GROWTH_ARGV[GROWTH_ARGV.index("--keys") + 1])
+    # the table rounds delta% to 0.1%: work it out from the integer columns
+    rows = [dict(zip(("key", "single", "mesh_raw", "mesh_dedup"),
+                     map(int, ln.split()[:4])))
+            for ln in lines[1:1 + keys]]
+    for r in rows:
+        r["delta_pct"] = (100.0 * (r["mesh_dedup"] - r["single"])
+                          / max(r["single"], 1))
+    cfg = growth_parity.config()
+    points = int(GROWTH_ARGV[GROWTH_ARGV.index("--points") + 1])
+    state = growth_parity.seeded_state(cfg, points)
+    draws = growth_parity.key_draws(
+        cfg, state[0].offsets.shape[0] * cfg.model.n_offsets, keys)
+    cpu = [growth_parity.single_growth(cfg, state, d, "cpu") for d in draws]
+    emit(phase="growth_parity", argv=GROWTH_ARGV, table=lines, rows=rows,
+         mean_delta_pct=float(np.mean([r["delta_pct"] for r in rows])),
+         single_cpu=[c[0] for c in cpu], seconds=seconds)
+    check(len(rows) == keys and all(r["single"] > 0 for r in rows),
+          "growth_parity: anchors grown on every key")
+    check([r["single"] for r in rows] == [c[0] for c in cpu]
+          and not any(c[1] for c in cpu),
+          "growth_parity: the single column equals the CPU's")
+
+
+# scaling_bench: (ranks, backend) and its flags
+SCALING_RUNS = ((1, "nccl"), (2, "gloo"))
+SCALING = dict(size=512, points=20000, iters=8)
+
+
+def scaling_phase(dev):
+    """scripts.scaling_bench's measure at world size 1 over NCCL and 2 over
+    gloo sharing the card: Mpix/s of the whole sharded context step (K1 and
+    K2 banded); each rank's K1 and K2 once a step (warm-up chain and timed
+    chain), the loss finite, no foreign module in a rank; each rank's last
+    K1 and K2 calls (its band, by its row offset) against their plain
+    versions on the same inputs, K1 within 2e-4 (mean 1e-6), K2 inside the
+    plain envelope. Returns K1's and K2's launches over the ranks."""
+    from contextgs_tpu_torch.scripts import scaling_bench
+
+    out, k1, k2 = [], 0, 0
+    for n, backend in SCALING_RUNS:
+        t0 = time.perf_counter()
+        res = scaling_bench.measure(n, SCALING["size"], SCALING["points"],
+                                    SCALING["iters"], device=dev,
+                                    backend=backend, keep_kernel_args=True)
+        seconds = time.perf_counter() - t0
+        ranks = res["ranks"]
+        # these launches are not the path's: its counts are the ranks' own
+        plain, t0 = [], time.perf_counter()
+        with torch.no_grad():
+            for r, x in enumerate(ranks):
+                kept = x.pop("kernel_args")
+                a1, a2 = (tuple(a.to(dev) if torch.is_tensor(a) else a
+                                for a in kept[name])
+                          for name in ("blend_forward", "blend_backward"))
+                plain.append(dict(
+                    rank=r, row_offset=a1[6], band=list(a1[3:5]),
+                    k1=compare_k1(*a1),
+                    k2=compare_k2(*a2[:3], a2[8], a2[9], *a2[6:8], a2[10],
+                                  row_offset=a2[11])))
+                del kept, a1, a2
+        plain_s = time.perf_counter() - t0
+        out.append(dict(ranks=n, backend=backend, mpix_s=res["pix_s"] / 1e6,
+                        loss=res["loss"], seconds=seconds, plain=plain,
+                        plain_s=plain_s,
+                        per_rank=[dict(rank=r, timed_s=x["seconds"],
+                                       k1_launches=x["k1_launches"],
+                                       k2_launches=x["k2_launches"],
+                                       steps=x["steps"],
+                                       foreign_modules=x["foreign_modules"])
+                                  for r, x in enumerate(ranks)]))
+        for r, x in enumerate(ranks):
+            check(x["k1_launches"] == x["steps"] == x["k2_launches"]
+                  == 2 * SCALING["iters"],
+                  f"scaling {n} ranks: rank {r} K1 and K2 once a step")
+            check(not x["foreign_modules"],
+                  f"scaling {n} ranks: rank {r} imported "
+                  f"{x['foreign_modules']}")
+            k1 += x["k1_launches"]
+            k2 += x["k2_launches"]
+        check(math.isfinite(res["loss"]), f"scaling {n} ranks: loss finite")
+        check(sorted(p["row_offset"] for p in plain)
+              == [r * -(-SCALING["size"] // (16 * n)) for r in range(n)],
+              f"scaling {n} ranks: one band a rank, by its row offset")
+    emit(phase="scaling", **SCALING, runs=out)
+    for run in out:
+        for p in run["plain"]:
+            where = f"scaling {run['ranks']} ranks, rank {p['rank']}"
+            check(p["k1"]["finite"] and p["k1"]["max_abs"] <= 2e-4
+                  and p["k1"]["mean_abs"] <= 1e-6,
+                  f"{where}: K1 against its plain version")
+            check(p["k2"]["finite"] and p["k2"]["envelope_err"] <= ENVELOPE,
+                  f"{where}: K2 inside the plain envelope")
+    return k1, k2
 
 
 def main() -> int:
@@ -2916,6 +3329,10 @@ def main() -> int:
           and size_mb["total"] > 0, "size estimate")
     del images
 
+    # ---- 5b. the live viewer on the trained model (K1) ----
+    begin("viewer")
+    viewer_k1 = viewer_phase(ts, tcfg)
+
     # ---- 6. the codec: encode the trained model, decode, serve (K1) ----
     begin("codec")
     codec_k1 = codec_phase(ts, tcfg, scene, run, size_mb, serve_ms, dev)
@@ -3010,6 +3427,12 @@ def main() -> int:
         (rows, ids, bounds, W, H, kept[10]), dev, drivers_psnr, prev_offset)
     del kept, rows, ids, bounds, serve_k2, scene
 
+    # ---- 6d. the sharded path's harnesses: growth_parity, scaling ----
+    begin("growth_parity")
+    growth_phase()
+    begin("scaling")
+    scaling_k1, scaling_k2 = scaling_phase(dev)
+
     # ---- 7. K3 timed against torch.cumsum and its byte bound ----
     begin("k3_bound")
     scan.launches = 0
@@ -3039,12 +3462,13 @@ def main() -> int:
         dict(name="blend_forward", route="cuda",
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_forward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:317",
-             launches=(k1_launches + train_k1 + codec_k1
+             launches=(k1_launches + train_k1 + viewer_k1 + codec_k1
                        + sum(drivers_k1.values())
-                       + sum(sharded_k1.values())),
+                       + sum(sharded_k1.values()) + scaling_k1),
              launches_by_path=dict(serve=k1_launches, train=train_k1,
-                                   codec=codec_k1, **drivers_k1,
-                                   **sharded_k1),
+                                   viewer=viewer_k1, codec=codec_k1,
+                                   **drivers_k1, **sharded_k1,
+                                   scaling_bench=scaling_k1),
              max_abs_err=k1_res["max_abs"], ms=k1_ms, plain_ms=plain_ms,
              bound_ms=k1_bound["bound_ms"],
              bound_by=contract_label(k1_bound),
@@ -3063,9 +3487,9 @@ def main() -> int:
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_backward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:548",
              launches=(train_k2 + sum(drivers_k2.values())
-                       + sum(sharded_k2.values())),
+                       + sum(sharded_k2.values()) + scaling_k2),
              launches_by_path=dict(train=train_k2, **drivers_k2,
-                                   **sharded_k2),
+                                   **sharded_k2, scaling_bench=scaling_k2),
              max_abs_err=k2_res["max_abs"], ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=k2_bound["bound_ms"],
              bound_by=contract_label(k2_bound),

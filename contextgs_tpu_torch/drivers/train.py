@@ -3,14 +3,16 @@ estimate → encode → decode → render the test split from the DECODED scene 
 metrics → results.json.
 
     python -m contextgs_tpu_torch.drivers.train -s <scene_dir> -m outputs/scene \
-        --lmbda 0.001 [--preset mipnerf360] [--force_cpu]
+        --lmbda 0.001 [--preset mipnerf360] [--gui --ip 127.0.0.1 --port 6009] \
+        [--force_cpu]
 
 The flags are the JAX driver's. Refused, with the reason: `--budget` and
-`--train_vis_cap` (the port sizes its instance lists per render), a
-`--backend` other than `auto` (the rasterizer follows the tensors' device),
-and `--gui`, `--ip` and `--port` (the SIBR viewer is not ported yet).
-`--profile_steps` writes a `torch.profiler` trace under
-`<model_path>/profile`; `--detect_anomaly` turns on
+`--train_vis_cap` (the port sizes its instance lists per render) and a
+`--backend` other than `auto` (the rasterizer follows the tensors' device).
+`--gui` serves live renders to a SIBR remote viewer on `--ip`:`--port`
+(`utils/viewer.py`; `viewer_render` draws each frame through K1 in the
+phase training is in). `--profile_steps` writes a `torch.profiler` trace
+under `<model_path>/profile`; `--detect_anomaly` turns on
 `torch.autograd.set_detect_anomaly`.
 
 `--mesh N` trains on N ranks (`train/sharded_loop.train_sharded`): one
@@ -19,8 +21,10 @@ process a CUDA card over NCCL, and more ranks than cards raise;
 gloo, the counterpart of the JAX driver's virtual CPU mesh. Rank 0 writes
 the logs, the checkpoints and the snapshot; this process then encodes,
 decodes, renders and writes results.json from the gathered model, as after
-a single-process run. The ranks run in processes of their own, so
-`--profile_steps` and `--detect_anomaly` are refused with `--mesh`.
+a single-process run. `--detect_anomaly` turns anomaly mode on in every
+rank. As in the JAX driver, a mesh run neither profiles (`--profile_steps`
+is refused with `--mesh`) nor polls the viewer: `--gui` with `--mesh`
+opens the server and renders nothing.
 """
 
 from __future__ import annotations
@@ -43,10 +47,13 @@ from contextgs_tpu_torch.compression.codec import decode_scene, encode_scene
 from contextgs_tpu_torch.config import (ModelConfig, OptimizationConfig,
                                         PipelineConfig, TrainConfig, preset)
 from contextgs_tpu_torch.models import state as st
+from contextgs_tpu_torch.models.levels import build_level_maps
+from contextgs_tpu_torch.models.renderer import render
 from contextgs_tpu_torch.scene.ply_io import read_ply
-from contextgs_tpu_torch.train.loop import train
+from contextgs_tpu_torch.train.loop import TrainerState, phase_of, train
 from contextgs_tpu_torch.train.sharded_loop import train_sharded
 from contextgs_tpu_torch.utils.tboard import SummaryWriter
+from contextgs_tpu_torch.utils.viewer import ViewerServer
 
 MB = 8 * 1024 * 1024
 
@@ -100,12 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save_images", action="store_true")
     p.add_argument("--no_tensorboard", action="store_true",
                    help="disable TensorBoard event files under <model_path>/tb")
-    p.add_argument("--ip", default=None,
-                   help="refused: only the SIBR viewer reads it (--gui)")
-    p.add_argument("--port", type=int, default=None,
-                   help="refused: only the SIBR viewer reads it (--gui)")
+    # the live SIBR remote-viewer server
+    p.add_argument("--ip", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=6009)
     p.add_argument("--gui", action="store_true",
-                   help="refused: the SIBR viewer is not ported yet")
+                   help="serve live renders to a SIBR remote viewer")
     p.add_argument("--test_iterations", nargs="+", type=int, default=None,
                    help="iterations at which to evaluate the test split "
                         "mid-training (default: final iteration)")
@@ -145,15 +151,10 @@ def refuse(p: argparse.ArgumentParser, args) -> None:
         p.error("--mesh_force_cpu is refused without --mesh N")
     if args.mesh is not None and args.mesh < 1:
         p.error("--mesh needs a number of ranks >= 1")
-    if args.mesh and (args.profile_steps or args.detect_anomaly):
-        p.error("--profile_steps and --detect_anomaly are refused with "
-                "--mesh: the ranks train in processes of their own")
-    if args.gui:
-        p.error("--gui is refused: the SIBR viewer (utils/viewer.py) is not "
-                "ported yet")
-    if args.ip is not None or args.port is not None:
-        p.error("--ip and --port are refused: only the SIBR viewer reads "
-                "them, and it is not ported yet (--gui)")
+    if args.mesh and args.profile_steps:
+        p.error("--profile_steps is refused with --mesh: the ranks train in "
+                "processes of their own, and the JAX driver's mesh run "
+                "profiles nothing either")
 
 
 def config_from_args(args) -> TrainConfig:
@@ -224,6 +225,44 @@ def profiler(cfg: TrainConfig, n: int, dev: torch.device, log):
                                          repeat=1))
 
 
+@torch.no_grad()
+def viewer_render(ts: TrainerState, it: int, cfg: TrainConfig, cam,
+                  scaling_modifier: float = 1.0) -> torch.Tensor:
+    """One live-viewer frame of the model training is at: [H, W, 3] in
+    [0, 1] on the model's device, rendered through K1 by
+    `models/renderer.render(training=False)` in the phase of step `it`
+    (the noise phase while the level scales are not searched yet; in the
+    context phase over the level maps of the quantized anchors), with the
+    wire's scaling modifier and a generator seeded 0. `cam` is a `MiniCam`
+    (or a `Camera`)."""
+    phase = phase_of(it, cfg)
+    scales = tuple(ts.level_scales or ())
+    if phase == "context" and not scales:
+        phase = "noise"    # scales not searched yet this step
+    p, b = ts.model.params, ts.model.buffers
+    dev = p.anchor.device
+    maps = None
+    if phase == "context":
+        maps = build_level_maps(st.get_anchor(p, b), b.alive, ts.voxel_size,
+                                scales, cfg.model.level_num)
+    out = render(p, b, cfg.model, cfg.opt, cfg.pipe, cam.as_device_dict(),
+                 cam.width, cam.height,
+                 torch.from_numpy(drivers.background(cfg)),
+                 torch.Generator(dev).manual_seed(0), phase=phase,
+                 training=False, maps=maps,
+                 scale_modifier=float(scaling_modifier))
+    return out.image.clamp(0.0, 1.0).permute(1, 2, 0)
+
+
+def open_viewer(args, log):
+    """The `--gui` server as a context that closes it, else a null one."""
+    if not args.gui:
+        return contextlib.nullcontext()
+    viewer = ViewerServer(args.ip, args.port)
+    log.info("viewer listening on %s:%d", viewer.host, viewer.port)
+    return contextlib.closing(viewer)
+
+
 def write_progress(model_path: str, total: int, it: int, ts, metrics) -> None:
     """Heartbeat for external monitors, every 100 steps: a killed run
     leaves its last known state on disk. A training callback (with
@@ -249,7 +288,8 @@ def run_training(args, cfg: TrainConfig, scene, dev: torch.device, callback,
     ts = train_sharded(
         cfg, scene, args.mesh, device=dev,
         callback=functools.partial(write_progress, cfg.model_path,
-                                   cfg.opt.iterations))
+                                   cfg.opt.iterations),
+        detect_anomaly=args.detect_anomaly)
     if tb is not None:
         for s in ts.ranks[0]["steps"]:
             if s["it"] % 100 == 0:
@@ -288,11 +328,16 @@ def _run(args, cfg: TrainConfig, dev: torch.device, log) -> int:
     if cfg.model_path and not args.no_tensorboard:
         tb = SummaryWriter(os.path.join(cfg.model_path, "tb"))
     prof = None     # the profiler, while the first run trains
+    viewer = None   # the --gui server, while training
 
     def callback(it, ts_, metrics):
         write_progress(cfg.model_path, cfg.opt.iterations, it, ts_, metrics)
         if prof is not None:
             prof.step()
+        if viewer is not None:
+            viewer.poll(lambda cam, smod: viewer_render(
+                ts_, it, cfg, cam, smod).cpu().numpy(), cfg.source_path, it,
+                cfg.opt.iterations)
         if tb is not None and it % 100 == 0:
             tb.add_scalar("train_loss_patches/total_loss",
                           float(metrics.loss), it)
@@ -302,7 +347,8 @@ def _run(args, cfg: TrainConfig, dev: torch.device, log) -> int:
             tb.add_scalar("total_points", st.n_alive(ts_.model), it)
 
     try:
-        with torch.autograd.set_detect_anomaly(args.detect_anomaly):
+        with torch.autograd.set_detect_anomaly(args.detect_anomaly), \
+                open_viewer(args, log) as viewer:
             # a trace whose window runs past training closes at its end
             with profiler(cfg, args.profile_steps, dev, log) as prof:
                 ts = run_training(args, cfg, scene, dev, callback, tb)

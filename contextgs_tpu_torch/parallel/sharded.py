@@ -352,24 +352,13 @@ def compute_tree_roots(anchor: np.ndarray, alive: np.ndarray,
     return root.astype(np.int32)
 
 
-def reshard_anchors(params: Params, buffers: Buffers, adam: AdamState,
-                    n_dev: int, voxel_size: float,
-                    level_scales: tuple | None = None, level_num: int = 3,
-                    headroom: float = 1.3, min_capacity: int = 0):
-    """Host-side anchor redistribution, at densify cadence:
-
-    1. global voxel dedup at the finest anchor grid (ranks can grow the
-       same voxel within one interval; the first occupant stays);
-    2. shard assignment: a hash of the anchor's context-tree root once the
-       level scales are known (each tree on one shard), a spatial voxel
-       hash before that;
-    3. packing into equal-capacity slabs (grown when a shard outgrows its
-       slab, or to `min_capacity`), dead tail slots zeroed.
-
-    The anchor-indexed tensors of the full state come in and go out on the
-    host, with the reference's arithmetic and hashes; the replicated parts
-    pass through. Returns (params, buffers, adam, info); the capacity is a
-    multiple of n_dev, so `shard_model` slabs it."""
+def reshard_rows(params: Params, buffers: Buffers, n_dev: int,
+                 voxel_size: float, level_scales: tuple | None = None,
+                 level_num: int = 3, headroom: float = 1.3,
+                 min_capacity: int = 0):
+    """The row plan of `reshard_anchors`: (src, info), where `src[j]` is
+    the old row of new row j (-1: a dead pad slot), so that a per-slot
+    quantity (a densify draw) can follow the anchors."""
     alive = buffers.alive.cpu().numpy().copy()
     n = alive.shape[0]
 
@@ -378,7 +367,7 @@ def reshard_anchors(params: Params, buffers: Buffers, adam: AdamState,
     bmin = buffers.bound_min.cpu().numpy()
     bmax = buffers.bound_max.cpu().numpy()
     interval = (bmax - bmin) * Q_ANCHOR + 1e-6
-    codes = np.clip(np.floor((params.anchor.cpu().numpy() - bmin)
+    codes = np.clip(np.floor((params.anchor.detach().cpu().numpy() - bmin)
                              / interval), 0, 2 ** ANCHOR_ROUND_DIGITS - 1)
     anchor = codes * interval + bmin
 
@@ -410,10 +399,41 @@ def reshard_anchors(params: Params, buffers: Buffers, adam: AdamState,
     cap_per = max(cap_per, -(-min_capacity // n_dev))
     new_n = cap_per * n_dev
 
-    # row permutation: new row → old row (-1: a dead pad slot)
     src = np.full(new_n, -1, np.int64)
     for d, rows in enumerate(per):
         src[d * cap_per:d * cap_per + len(rows)] = rows
+    return src, dict(n_alive=int(len(keep)), n_dupes_removed=int(n_dupes),
+                     capacity=int(new_n))
+
+
+def reshard_anchors(params: Params, buffers: Buffers, adam: AdamState,
+                    n_dev: int, voxel_size: float,
+                    level_scales: tuple | None = None, level_num: int = 3,
+                    headroom: float = 1.3, min_capacity: int = 0):
+    """Host-side anchor redistribution, at densify cadence:
+
+    1. global voxel dedup at the finest anchor grid (ranks can grow the
+       same voxel within one interval; the first occupant stays);
+    2. shard assignment: a hash of the anchor's context-tree root once the
+       level scales are known (each tree on one shard), a spatial voxel
+       hash before that;
+    3. packing into equal-capacity slabs (grown when a shard outgrows its
+       slab, or to `min_capacity`), dead tail slots zeroed.
+
+    The anchor-indexed tensors of the full state come in and go out on the
+    host, with the reference's arithmetic and hashes; the replicated parts
+    pass through. Returns (params, buffers, adam, info); the capacity is a
+    multiple of n_dev, so `shard_model` slabs it."""
+    src, info = reshard_rows(params, buffers, n_dev, voxel_size,
+                             level_scales, level_num, headroom, min_capacity)
+    return (*take_rows(params, buffers, adam, src), info)
+
+
+def take_rows(params: Params, buffers: Buffers, adam: AdamState,
+              src: np.ndarray):
+    """The full state's anchor-indexed tensors moved on the host by the row
+    plan `src` of `reshard_rows` (pad rows dead and zeroed); the replicated
+    parts pass through. → (params, buffers, adam)."""
     pad = torch.from_numpy(src < 0)
     src_c = torch.from_numpy(np.where(src < 0, 0, src))
 
@@ -429,9 +449,7 @@ def reshard_anchors(params: Params, buffers: Buffers, adam: AdamState,
                                                  tensors)
     buffers = buffers._replace(bound_min=buffers.bound_min.cpu(),
                                bound_max=buffers.bound_max.cpu())
-    return params, buffers, adam, dict(n_alive=int(len(keep)),
-                                       n_dupes_removed=int(n_dupes),
-                                       capacity=int(new_n))
+    return params, buffers, adam
 
 
 def net_state(params: Params) -> dict:

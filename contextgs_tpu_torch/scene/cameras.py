@@ -1,5 +1,5 @@
-"""Camera container with precomputed view/projection transforms; the port's
-copy of `contextgs_tpu/scene/cameras.py::Camera`.
+"""Camera containers with precomputed view/projection transforms; the port's
+copy of `contextgs_tpu/scene/cameras.py` (`Camera`, `MiniCam`).
 
 A host-side dataclass of numpy arrays; `as_device_dict()` packs the fields a
 render needs, and the renderer moves them to its device. `world_view` and
@@ -79,3 +79,30 @@ def make_camera(uid: int, R: np.ndarray, T: np.ndarray, fov_x: float, fov_y: flo
                 **kw) -> Camera:
     return Camera(uid=uid, colmap_id=uid, R=R, T=T, fov_x=fov_x, fov_y=fov_y,
                   image=image, width=width, height=height, **kw)
+
+
+@dataclass
+class MiniCam:
+    """Pose-only camera built from pre-composed transforms (the live
+    viewer): the client ships the transposed `world_view` and `full_proj`,
+    so nothing is recomputed here but the camera centre. `as_device_dict`
+    gives `Camera`'s keys, so `models/renderer.render` takes either."""
+    width: int
+    height: int
+    fov_x: float
+    fov_y: float
+    znear: float
+    zfar: float
+    world_view: np.ndarray         # [4,4] transposed W2V (row-vector conv.)
+    full_proj: np.ndarray          # [4,4] transposed world→clip
+    camera_center: np.ndarray = field(init=False)
+
+    def __post_init__(self):
+        self.world_view = np.asarray(self.world_view, np.float32)
+        self.full_proj = np.asarray(self.full_proj, np.float32)
+        self.camera_center = np.linalg.inv(
+            self.world_view)[3, :3].astype(np.float32)
+
+    tanfovx = Camera.tanfovx
+    tanfovy = Camera.tanfovy
+    as_device_dict = Camera.as_device_dict

@@ -1,10 +1,20 @@
-"""The port's counterparts of the root `scripts/` that hold TPU kernels: the
-kernel labs `kvariants` (K4, the tile-blend forward in stages) and
-`xpose_lab` (K5 and K6, the slab transposes, and the layout rows around
-them). Each runs on the card unless its caller passes `device="cpu"`:
+"""The port's counterparts of the root `scripts/`, run as
+`python -m contextgs_tpu_torch.scripts.<name>`:
 
-    python -m contextgs_tpu_torch.scripts.kvariants
-    python -m contextgs_tpu_torch.scripts.xpose_lab
+- the kernel labs `kvariants` (K4, the tile-blend forward in stages) and
+  `xpose_lab` (K5 and K6, the slab transposes, and the layout rows around
+  them);
+- `make_synth_scene`, the synthetic COLMAP scene rendered through K1;
+- the sharded path's harnesses `scaling_bench` (pixels/s of the sharded
+  context step per world size, K1 and K2 banded) and `growth_parity` (one
+  densify on identical state, single process against N ranks);
+- the codec's audit `codec_diag` (bits per stream: ideal, window,
+  quantized CDF, payload, escape);
+- the rate-distortion tools `sweep` (λ runs of `drivers.train`),
+  `rd_table` and `collect_results`.
+
+Each runs on the card unless asked for the CPU (`device="cpu"`, or
+`--force_cpu` on the command line).
 """
 
 from __future__ import annotations

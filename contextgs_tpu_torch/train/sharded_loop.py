@@ -64,7 +64,8 @@ def rank_seed(seed: int, rank: int) -> int:
 
 def train_sharded(cfg: TrainConfig, scene: SceneInfo, n_devices: int, *,
                   device=None, backend: str | None = None, callback=None,
-                  timeout: float | None = None) -> TrainerState:
+                  timeout: float | None = None,
+                  detect_anomaly: bool = False) -> TrainerState:
     """Run the optimization on `n_devices` ranks; → the final trainer state
     with the model gathered onto `device` (default: the CUDA card), and
     each rank's report (launches, timings, memory, replicated parameters)
@@ -76,7 +77,9 @@ def train_sharded(cfg: TrainConfig, scene: SceneInfo, n_devices: int, *,
     CPU (`device="cpu"`) the ranks run gloo. `callback(it, ts, metrics)`
     runs on rank 0 after every step (so it must pickle: a module-level
     function or an object of a module-level class); `ts.model` is then
-    rank 0's slab. The kernels are built here, before the spawn."""
+    rank 0's slab. `detect_anomaly` turns on
+    `torch.autograd.set_detect_anomaly` in every rank. The kernels are
+    built here, before the spawn."""
     dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     if dev.type == "cuda":
@@ -91,7 +94,8 @@ def train_sharded(cfg: TrainConfig, scene: SceneInfo, n_devices: int, *,
         raise ValueError(f"ranks on the CPU run gloo, not {backend}")
     results = pcomm.spawn(
         _train_rank, n_devices,
-        (cfg, scene, callback, logging.getLogger(log.name).getEffectiveLevel()),
+        (cfg, scene, callback, logging.getLogger(log.name).getEffectiveLevel(),
+         detect_anomaly),
         backend=backend, device_type=dev.type, timeout=timeout)
     final = results[0]["final"]
     params, buffers, adam = _to_device(*final["state"], dev)
@@ -121,13 +125,13 @@ def _to_device(params, buffers, adam, dev):
 
 
 def _train_rank(mesh, cfg: TrainConfig, scene: SceneInfo, callback,
-                log_level: int) -> dict:
+                log_level: int, detect_anomaly: bool = False) -> dict:
     """The rank body of `train_sharded`."""
     logs = contextlib.nullcontext(log)
     if mesh.rank == 0 and log_level <= logging.INFO:
         from contextgs_tpu_torch import drivers
         logs = drivers.logging_to(cfg.model_path)
-    with logs:
+    with logs, torch.autograd.set_detect_anomaly(detect_anomaly):
         return _train(mesh, cfg, scene, callback)
 
 
@@ -185,7 +189,8 @@ def _train(mesh, cfg: TrainConfig, scene: SceneInfo, callback) -> dict:
     step_fns: dict = {}
     densify_fn = None
     report = dict(rank=rank, world=n_dev, backend=mesh.backend,
-                  device=str(dev), steps=[], reshard_s=[], densify=[])
+                  device=str(dev), steps=[], reshard_s=[], densify=[],
+                  anomaly_mode=torch.is_anomaly_enabled())
 
     def reshard(min_capacity: int = 0, context_transition: bool = False):
         nonlocal sp, sb, sa

@@ -206,6 +206,32 @@ def test_warmup_profile_and_anomaly_flags(scene, tmp_path):
     assert not torch.is_anomaly_enabled()
 
 
+def test_detect_anomaly_with_mesh(scene, tmp_path):
+    """`--mesh 2 --force_cpu --detect_anomaly` trains on two gloo ranks
+    with anomaly mode on in each, as the JAX driver sets jax_debug_nans for
+    a mesh run; this process's mode is left as it was."""
+    kept = {}
+
+    def keep(fn):
+        def call(*args, **kw):
+            kept["ts"] = fn(*args, **kw)
+            return kept["ts"]
+        return call
+
+    with mock.patch.object(train_driver, "train_sharded",
+                           keep(train_driver.train_sharded)):
+        assert train_driver.main([
+            "-s", str(scene), "-m", str(tmp_path / "a"), "--iterations",
+            "3", "--noise_from", "100", "--context_from", "200",
+            "--n_offsets", "4", "--skip_codec", "--no_tensorboard",
+            "--mesh", "2", "--force_cpu", "--detect_anomaly"]) == 0
+    reports = kept["ts"].ranks
+    assert [r["rank"] for r in reports] == [0, 1]
+    assert all(r["anomaly_mode"] for r in reports)
+    assert len(reports[0]["steps"]) == 3
+    assert not torch.is_anomaly_enabled()
+
+
 @pytest.mark.parametrize("main, flags, why", [
     (train_driver.main, ["--budget", "4096"], "no instance budget"),
     (train_driver.main, ["--train_vis_cap", "100"], "no visible cap"),
@@ -213,14 +239,25 @@ def test_warmup_profile_and_anomaly_flags(scene, tmp_path):
     (train_driver.main, ["--mesh", "4", "--profile_steps", "2"],
      "processes of their own"),
     (train_driver.main, ["--mesh_force_cpu"], "without --mesh"),
-    (train_driver.main, ["--gui"], "viewer"),
-    (train_driver.main, ["--ip", "0.0.0.0"], "viewer"),
-    (train_driver.main, ["--port", "6010"], "viewer"),
+    (train_driver.main, ["--gui"], None),
+    (train_driver.main, ["--ip", "0.0.0.0"], None),
+    (train_driver.main, ["--port", "6010"], None),
     (decompress.main, ["--budget", "8"], "no instance budget"),
     (test_driver.main, ["--budget", "8"], "no instance budget"),
 ], ids=["budget", "train_vis_cap", "backend", "mesh", "mesh_force_cpu",
         "gui", "ip", "port", "decompress_budget", "test_budget"])
 def test_refused_flags(main, flags, why, capsys):
+    """Each flag the port has no meaning for exits with the reason. The
+    viewer's flags (`--gui`, `--ip`, `--port`) were refused until the SIBR
+    viewer was ported; `why=None` holds that the driver now takes them
+    (and `--detect_anomaly` with `--mesh`)."""
+    if why is None:
+        p = train_driver.build_parser()
+        args = p.parse_args(["-s", "nowhere", *flags, "--mesh", "2",
+                             "--detect_anomaly", "--force_cpu"])
+        train_driver.refuse(p, args)
+        assert "refused" not in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as exc:
         main(["-s", "nowhere", "-m", "nowhere", *flags, "--force_cpu"])
     assert exc.value.code != 0

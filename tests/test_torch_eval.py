@@ -184,10 +184,20 @@ def _pil_imports(path):
     yield from walk(tree, None)
 
 
+# the functions that may import Pillow, each inside its body: the loaders'
+# JPEG and resize branches, and the labels of the visualization helpers
+# (drawn with Pillow's built-in font, as the JAX package draws them)
+PILLOW_USERS = {
+    "contextgs_tpu_torch/scene/dataset_readers.py": "_pillow",
+    "contextgs_tpu_torch/utils/visualize.py": "add_label_centered",
+}
+
+
 def test_port_imports_no_jax():
     """No module of the port (nor chip_smoke.py) imports JAX or the JAX
     package; none imports Pillow at module level or anywhere but the
-    loaders' `_pillow`, which the JPEG and resize branches call."""
+    functions of PILLOW_USERS: the loaders' `_pillow`, which the JPEG and
+    resize branches call, and `visualize.add_label_centered`."""
     files = sorted((REPO / "contextgs_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
@@ -196,7 +206,10 @@ def test_port_imports_no_jax():
             "png.py", "lpips.py", "tboard.py", "snapshot.py", "colmap.py",
             "train.py", "decompress.py", "bench.py",
             "make_synth_scene.py", "comm.py", "sharded.py",
-            "sharded_loop.py"} <= {path.name for path in files}
+            "sharded_loop.py", "viewer.py", "visualize.py", "codec_diag.py",
+            "growth_parity.py", "scaling_bench.py", "sweep.py",
+            "rd_table.py", "collect_results.py"} <= {path.name
+                                                     for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):
@@ -204,10 +217,10 @@ def test_port_imports_no_jax():
                     f"{path.relative_to(REPO)} imports {mod}"
         rel = path.relative_to(REPO).as_posix()
         for func, mod in _pil_imports(path):
-            assert (rel == "contextgs_tpu_torch/scene/dataset_readers.py"
-                    and func == "_pillow"), f"{rel} imports {mod} in {func}"
-    readers = REPO / "contextgs_tpu_torch" / "scene" / "dataset_readers.py"
-    assert [f for f, _ in _pil_imports(readers)] == ["_pillow"]
+            assert PILLOW_USERS.get(rel) == func, \
+                f"{rel} imports {mod} in {func}"
+    for rel, func in PILLOW_USERS.items():
+        assert [f for f, _ in _pil_imports(REPO / rel)] == [func]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -18,18 +18,23 @@ after every phase has held.
    the previous design's K3 and K2 sources lie in build/prev (scan_prev.cu,
    blend_backward_prev.cu, taken from git history: not in the repository,
    so a checkout skips them), those, to time old against new in this
-   call; and K1 at its other warp geometries (K1_GEOMETRIES, written from
-   its source into build/k1_geometries). k1_ptxas: registers, shared
-   memory and spills of K1, of its other geometries and of K4's level 4,
-   the first design of K1; the codec's range coder (host C++, the port's
-   own copy in compression/csrc) built with the host compiler, whose path
-   and version it prints. k4_sass: K4's levels in
-   the SASS cuobjdump prints (skipped where the toolkit has none), so that
-   the sinks are seen to keep every stage's work: the bounds' loads at
-   level 0, the row gather's loads and staging stores from level 1 on, the
-   exp from level 2 on only, and a walk that grows from level 2 to 4; K1's
-   own counts beside level 4's, not checked. Whether PIL and torchvision
-   import, asked of a fresh interpreter (nothing on the port's path
+   call; K1 at its other warp geometries (K1_GEOMETRIES, written from
+   its source into build/k1_geometries); and, where a copy of K4's source
+   from before its levels became stages of K1's per-warp design lies at
+   build/prev/kvariants_prev.cu (from git history; a checkout skips it),
+   that one. k4_ptxas: registers, shared memory and spills of each level
+   of K4 (and of the previous design's, where present) and the blocks an
+   SM holds of each by the occupancy calculator. k1_ptxas: registers,
+   shared memory and spills of K1, of its other geometries and of K4's
+   level 4; the codec's range coder (host C++, the port's own copy in
+   compression/csrc) built with the host compiler, whose path and version
+   it prints. k4_sass: K4's levels in the SASS cuobjdump prints (skipped
+   where the toolkit has none), so that the sinks are seen to keep every
+   stage's work: the bounds' loads and no copy at level 0, the row gather
+   as at least nine cp.async copies (LDGSTS) and the ids' loads from level
+   1 on, the exp from level 2 on only, and a walk that grows from level 2
+   to 4; K1's own counts beside level 4's, not checked. Whether PIL and
+   torchvision import, asked of a fresh interpreter (nothing on the port's path
    imports either).
 2. k1_check — K1 against its plain PyTorch version on the card: golden small
    cases and the cull cases below (2e-5), then a 1280x720 view of a
@@ -55,12 +60,15 @@ after every phase has held.
    prefix, the worst share of that bound printed; K3's scratch left
    zeroed.
    k4_check — every level of K4 against its plain version and K1 on the
-   golden cases and the kernel lab's 1x3600 table: v0 exact, the sinks of
-   v1 and v2 1e-5 relative, v3's sink (unscaled) and v4 with K1's
-   tolerances; v4 bit-equal to K1, v3's T and last_contrib equal to K1's.
+   golden cases, the cull cases and the kernel lab's 1x3600 table: v0
+   exact, the sinks of v1 and v2 1e-5 relative, v3's sink (unscaled) and
+   v4 with K1's tolerances; v4 bit-equal to K1, v3's T and last_contrib
+   equal to K1's.
    k1_old_new — K1, and K1 at each other warp geometry, torch.equal to K4's
-   level 4 (the first design) in rgb, final T and last_contrib on the
-   golden cases, the cull cases and the lab's 1x3600 table.
+   level 4 (K1's design with its row gather staged by cp.async) in rgb,
+   final T and last_contrib on the golden cases, the cull cases and the
+   lab's 1x3600 table; and K1 torch.equal to the previous design's level
+   4 where its copy is present.
    k56_check — K5 and K6 equal to x.transpose(1, 2).contiguous() at the
    lab's [8394, 128, 16] and at ragged slab counts.
 3. serve — the main path of serving at full width: a decoded scene of
@@ -74,7 +82,9 @@ after every phase has held.
    the orbit with CUDA events around the renderer's module-level calls (the
    stage split), K1 checked, timed and bounded on the kept inputs,
    k4_check and k4_decompose on them (each level of K4 timed beside K1,
-   with its increment and bound, and the per-tile list lengths); K2 checked
+   with its increment and its bounds, in turns with the previous design's
+   level where its copy is present, and the per-tile list lengths): the
+   split of K1's time on the main path; K2 checked
    on the same view with seeded cotangents (a denser list than training's:
    its time comes after training), the small
    CPU-vs-card check, and render(phase="plain") from init_scene_model over a
@@ -103,12 +113,15 @@ after every phase has held.
    relative: atomics and reduction order differ); context_small_cpu_vs_card:
    5 context steps likewise, both sides given the same draws (loss and
    bit_per_param 1e-3 relative); k1_bound on the last step's inputs (K1
-   on the training path); k1_old_new on the serve view's and the last
-   step's K1 inputs: K1 torch.equal to the first design, the two timed in
-   turns (v4, K1, K1, v4) by card_ms and by events, each other geometry in
-   turns with K1, and the (warp, instance) pairs each geometry walks
-   (fwd_warp_touched, fwd_warp_exp) beside the first design's walked
-   pairs / 32; k2_bound: K2 timed and bounded on the last step's
+   on the training path); k4_check and k4_decompose on the last step's K1
+   inputs, as on the serve view's; k1_old_new on the serve view's and the
+   last step's K1 inputs: K1 torch.equal to K4's level 4 (and to the
+   previous design's where present), the two timed in turns (v4, K1, K1,
+   v4) by card_ms and by events, which is what the asynchronous staging is
+   worth to K1, each other geometry in turns with K1, and the (warp,
+   instance) pairs each geometry walks (fwd_warp_touched, fwd_warp_exp)
+   beside the listed pairs / 32 that a walk without the cull reaches;
+   k2_bound: K2 timed and bounded on the last step's
    inputs and on the serve view's, each beside the previous K2 in turns
    where its copy is present, with the shuffles and global atomics of both
    designs counted from the pair counts; and k2_knockouts: K2 beside its
@@ -235,8 +248,13 @@ after every phase has held.
 8. the kernel labs, each lab's counts set to 0 just before and read just
    after: kvariants_lab (kvariants.run_all, K4's five levels on the lab's
    1x3600, 2x3600 and 8x450 tables), then k4_decompose per table (K1 timed
-   on the same inputs, each level's bound, the plain versions on 1x3600)
-   and k4_uneven_tiles (8x450 over 1x3600); xpose_lab (xpose_lab.run_all:
+   on the same inputs, each level's bound of the work it needs and of the
+   pairs it would walk without the cull, each level in turns with the
+   previous design's where its copy is present, the plain versions on
+   1x3600) and k4_uneven_tiles (8x450 over 1x3600). The tables' instances
+   lie anywhere in the image and almost none meets its tile, so there
+   levels 2-4 time the gather and the footprint pass; the serve view and
+   the last step split K1's time. xpose_lab (xpose_lab.run_all:
    K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
    the slab transpose's byte bound.
 9. the `kernels` line (K1's launches: serve, train, viewer, codec,
@@ -340,12 +358,25 @@ K1_GEOMETRY_LINES = (r"constexpr int kWarpW = (\d+);",
                      r"constexpr int kPerThread = (\d+);")
 K1_GEOMETRY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "k1_geometries")
-# float32 operations of K4's levels 2 and 3 (scripts/csrc/kvariants.cu) on a
-# pair, keyed as OPS: level 2 walks every listed pair without an early exit
-# and adds each alpha >= 1/255 to its sink (1); level 3 adds T·(1-α) (2) and,
-# for a blended pair, α·T and the sink's add (2). Level 4 is K1: OPS.
+# float32 operations of K4's levels 2-4 (scripts/csrc/kvariants.cu) on a
+# pair, keyed as OPS. Needed (NEED_K4), as NEED_K1 counts them: a pair that
+# reaches alpha >= 1/255 takes its power, exp and clamp (13); level 2 adds
+# it to its sink (1), with no early exit (its pairs counted at t_eps 0);
+# level 3 adds T·(1-α) (2) and, for a blended pair, α·T and the sink's add
+# (2); level 4 is K1: NEED_K1. Walked (OPS_K4, bound_walked_ms): every
+# listed pair that each pixel reaches, as the previous design walked them:
+# level 2 adds each alpha >= 1/255 to its sink (1); level 3 adds T·(1-α)
+# (2) and, for a blended pair, α·T and the sink's add (2); level 4 OPS.
+NEED_K4 = {2: dict(tested=11 + 2 + 1), 3: dict(tested=11 + 2 + 2, blended=2),
+           4: NEED_K1}
 OPS_K4 = {2: dict(evaluated=11, exp=2, tested=1),
           3: dict(evaluated=11, exp=2, tested=2, blended=2), 4: OPS}
+# K4's source before its levels became stages of K1's per-warp design (one
+# thread a pixel walking every listed instance), copied from git history
+# to build/prev/kvariants_prev.cu: each level timed in turns with the new
+# one and held equal to it, and K1 bit-equal to its level 4; skipped where
+# the copy is absent
+PREV_K4 = os.path.join(PREV_DIR, "kvariants_prev.cu")
 K4_LEVELS = range(5)
 ENVELOPE = 1.5e-3            # K2 against the plain envelope, of max |grad|
 TRAIN_STEPS = 90
@@ -665,7 +696,7 @@ def k1_bound_of(rows, ids, bounds, width, height, pairs):
     """K1's bound on these inputs: bytes, the rows of gaussians with tile
     instances, ids and bounds read once, rgb, final T and last_contrib
     written once; operations and exps of the pairs that reach alpha >=
-    1/255 (walked: of every pair the first design's loop reaches, each
+    1/255 (walked: of every pair the previous design's loop reaches, each
     pixel walking its whole list until done)."""
     rows_read = int(torch.unique(ids).numel())
     n_bytes = (rows_read * rows.shape[1] * 4 + ids.numel() * 4
@@ -798,34 +829,42 @@ def ptxas_kernels(stem):
 
 
 def k1_equals_v4(case, rows, ids, bounds, width, height, t_eps=1e-4,
-                 others=None):
-    """K1 against the first design, K4's level 4 (scripts/csrc/
-    kvariants.cu), on the same card inputs: rgb, final T and last_contrib
-    torch.equal; and each other warp geometry of K1 in `others` ({name:
-    call}) likewise. Emits k1_old_new and fails unless all are equal."""
+                 others=None, old_k4=None):
+    """K1 against K4's level 4 (scripts/csrc/kvariants.cu: K1's design with
+    the row gather staged by cp.async), on the same card inputs: rgb, final
+    T and last_contrib torch.equal; and each other warp geometry of K1 in
+    `others` ({name: call}) likewise. With `old_k4` (the previous design's
+    K4, `k4_from`), K1 also against its level 4, the design before K1's
+    per-warp lists. Emits k1_old_new and fails unless all are equal."""
     from contextgs_tpu_torch.ops.rasterize import tile_kernel
     from contextgs_tpu_torch.scripts import kvariants
 
     args = (rows, ids, bounds, width, height, t_eps)
-    old = kvariants.blend_variant(4, *args)
+    v4 = kvariants.blend_variant(4, *args)
     outs = {"k1": tile_kernel.blend_forward(*args)}
     outs.update({name: call(*args) for name, call in (others or {}).items()})
+    old = old_k4(4, *args) if old_k4 is not None else None
     torch.cuda.synchronize()
-    equal = {name: [bool(torch.equal(a, b)) for a, b in zip(out, old)]
+    equal = {name: [bool(torch.equal(a, b)) for a, b in zip(out, v4)]
              for name, out in outs.items()}
+    if old is not None:
+        equal["k1_vs_previous_v4"] = [bool(torch.equal(a, b))
+                                      for a, b in zip(outs["k1"], old)]
     emit(phase="k1_old_new", case=case, equal_rgb_t_last=equal,
-         last_contrib_max=int(old[2].max()))
+         last_contrib_max=int(v4[2].max()))
     check(all(all(v) for v in equal.values()),
-          f"K1 bit-equal to K4 v4 (the first design) on {case}")
+          f"K1 bit-equal to K4 v4 on {case}")
 
 
 def k1_old_new(case, args, others, reps=20):
-    """K1 and the first design (K4's level 4) on the same inputs (rows,
-    ids, bounds, width, height, t_eps), in turns (v4, K1, K1, v4), by
-    `card_ms` (host gaps hidden) and by CUDA events over back-to-back calls;
-    each other warp geometry in `others` in turns with K1 by `card_ms`;
-    and the (warp, instance) pairs each geometry walks and takes an exp on,
-    beside the walked pairs / 32 of the first design."""
+    """K1 and K4's level 4 (K1's design with its row gather staged by
+    cp.async, double-buffered) on the same inputs (rows, ids, bounds,
+    width, height, t_eps), in turns (v4, K1, K1, v4), by `card_ms` (host
+    gaps hidden) and by CUDA events over back-to-back calls: what the
+    asynchronous staging is worth to K1; each other warp geometry in
+    `others` in turns with K1 by `card_ms`; and the (warp, instance) pairs
+    each geometry walks and takes an exp on, beside the walked pairs / 32
+    of a design without the cull."""
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
     from contextgs_tpu_torch.scripts import kvariants
 
@@ -859,7 +898,7 @@ def k1_old_new(case, args, others, reps=20):
                                       turns=t)
                            for name, t in geometries.items()},
                warp_pairs=warps,
-               v4_walked_warp_pairs=pairs["evaluated"] / 32,
+               unculled_warp_pairs=pairs["evaluated"] / 32,
                pairs_evaluated=pairs["evaluated"],
                pairs_tested=pairs["tested"], pairs_blended=pairs["blended"])
     emit(phase="k1_old_new", **res)
@@ -1460,9 +1499,11 @@ def context_small_cpu_vs_card(dev):
 
 
 def sass_summary(source):
-    """{kernel: {"instructions", "MUFU.EX2", "LDG", "STS", "LDS"}} of the
-    source's built library, counted in the SASS that cuobjdump prints (NOPs
-    left out); None where the toolkit has no cuobjdump."""
+    """{kernel: {"instructions", "MUFU.EX2", "LDG", "LDGSTS", "STS",
+    "LDS"}} of the source's built library, counted in the SASS that
+    cuobjdump prints (NOPs left out; LDG counts the global loads into
+    registers, LDGSTS the asynchronous copies into shared memory); None
+    where the toolkit has no cuobjdump."""
     from contextgs_tpu_torch.ops import cuda_build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1481,28 +1522,35 @@ def sass_summary(source):
                        line)
         if ops is not None and op and op.group(1) != "NOP":
             ops[op.group(1)] += 1
+
+    def family(op):
+        return op if op.startswith("MUFU.") else op.split(".")[0]
+
     return {name: dict(instructions=sum(ops.values()), **{
-        k: sum(n for o, n in ops.items() if o.startswith(k))
-        for k in ("MUFU.EX2", "LDG", "STS", "LDS")})
+        k: sum(n for o, n in ops.items() if family(o).startswith(k)
+               and (k != "LDG" or family(o) == "LDG"))
+        for k in ("MUFU.EX2", "LDG", "LDGSTS", "STS", "LDS")})
         for name, ops in kernels.items()}
 
 
 def check_k4_sass(k4, k1):
     """K4's levels in SASS keep their stages' work under -O3: level 0 loads
-    the two bounds; from level 1 on the id, the nine row values and the
-    five staging stores of the row gather are there; the exp from level 2
-    on only; and the walk grows from level 2 to 4. (Static counts need not
-    grow from level 0 to 2: -O3 unrolls level 1's short batch loop.) K1's
-    own counts are printed beside level 4's, the first design, and not
-    checked: the two designs differ."""
+    the two bounds and copies nothing; from level 1 on the row gather is
+    there as at least nine asynchronous copies (LDGSTS, one a field of the
+    staged record) beside the loads of the bounds and of the ids; the exp
+    from level 2 on only; and the walk grows from level 2 to 4. (Static
+    counts need not grow from level 0 to 2: -O3 unrolls level 1's short
+    chunk loop.) K1's own counts are printed beside level 4's and not
+    checked: K1 gathers through registers."""
     levels = [next(v for k, v in k4.items() if f"ILi{lv}E" in k)
               for lv in K4_LEVELS]
     emit(phase="k4_sass", levels=levels, k1_sass=list(k1.values())[0],
          v4_sass=levels[4])
-    check(levels[0]["LDG"] >= 2 and levels[0]["STS"] == 0,
+    check(levels[0]["LDG"] >= 2 and levels[0]["LDGSTS"] == 0
+          and levels[0]["STS"] == 0,
           "K4 SASS: level 0 reads the bounds and stages nothing")
-    check(all(lv["LDG"] >= 12 and lv["STS"] >= 5 for lv in levels[1:]),
-          "K4 SASS: the row gather from level 1 on")
+    check(all(lv["LDGSTS"] >= 9 and lv["LDG"] >= 3 for lv in levels[1:]),
+          "K4 SASS: the row gather by cp.async from level 1 on")
     check(all((lv["MUFU.EX2"] > 0) == (i >= 2) for i, lv in enumerate(levels)),
           "K4 SASS: exps from level 2 on only")
     walk = [lv["instructions"] for lv in levels[2:]]
@@ -1573,11 +1621,14 @@ def check_k4(case, rows, ids, bounds, width, height, t_eps=1e-4, big=False):
 
 def k4_bounds(rows, ids, bounds, width, height, t_eps=1e-4):
     """The roofline of each level of K4 on these inputs, counting only the
-    work that level does: level 0 reads the bounds and writes rgb, T and
+    work that level needs: level 0 reads the bounds and writes rgb, T and
     last_contrib; level 1 also reads the listed ids and the rows of the
-    gaussians they name; level 2 adds the pairs of every listed instance
-    with an in-image pixel (no early exit: the pair counts at t_eps = 0);
-    levels 3 and 4 the pairs up to each pixel's exit (at t_eps)."""
+    gaussians they name; levels 2-4 add the operations and exps of the
+    pairs that reach alpha >= 1/255 (NEED_K4), as K1's bound counts them:
+    level 2 those of every listed instance with an in-image pixel (no early
+    exit: the pair counts at t_eps = 0), levels 3 and 4 those up to each
+    pixel's exit (at t_eps). Beside it, as bound_walked_ms, the bound of
+    every pair each pixel reaches (OPS_K4), the previous design's walk."""
     from contextgs_tpu_torch.ops.rasterize import reference
 
     tiles_x = (width + 15) // 16
@@ -1591,19 +1642,51 @@ def k4_bounds(rows, ids, bounds, width, height, t_eps=1e-4):
         for lv in (2, 4)}
     pairs[3] = pairs[4]
     out = [roofline(base, 0, 0), roofline(base + gather, 0, 0)]
+    for res in out:
+        res.update(bound_walked_ms=res["bound_ms"],
+                   bound_walked_by=res["bound_by"])
     for lv in (2, 3, 4):
-        ops = sum(n * pairs[lv][k] for k, n in OPS_K4[lv].items())
-        out.append(roofline(base + gather, ops, pairs[lv]["exp"]))
+        out.append(dict(bounds_of(base + gather, pairs[lv], NEED_K4[lv],
+                                  OPS_K4[lv], "tested", "exp"),
+                        pairs_tested=pairs[lv]["tested"],
+                        pairs_evaluated=pairs[lv]["evaluated"]))
     return out
 
 
-def k4_decompose(case, times, inputs, width, height, t_eps=1e-4):
+def k4_from(source):
+    """The K4 of `source` (the previous design) behind the launch of K4's
+    wrapper: the same arguments after the level, the outputs allocated
+    alike, the cached function."""
+    from contextgs_tpu_torch.ops import cuda_build
+    from contextgs_tpu_torch.scripts import kvariants
+
+    def call(level, rows, ids, bounds, width, height, t_eps=1e-4):
+        out = (torch.empty((3, height, width), device=rows.device),
+               torch.empty((height, width), device=rows.device),
+               torch.empty((height, width), dtype=torch.int32,
+                           device=rows.device))
+        fn = cuda_build.c_function(source, "blend_variant",
+                                   kvariants.ARGTYPES)
+        err = cuda_build.launch(
+            fn, rows.device, level, rows.data_ptr(), ids.data_ptr(),
+            bounds.data_ptr(), width, height, (width + 15) // 16,
+            bounds.numel() - 1, t_eps, *(x.data_ptr() for x in out))
+        check(err == 0, f"K4 of {source}: CUDA error {err}")
+        return out
+    return call
+
+
+def k4_decompose(case, times, inputs, width, height, t_eps=1e-4, old=None):
     """Each level's time by CUDA events over back-to-back calls through the
     wrapper, as the lab times them (`times`, host launch gaps included), by
     `card_ms` warm (`kernel_ms`: the same calls with the gaps hidden) and
     cold (`cold_ms`: one call at a time after an L2 flush), the first two
-    with their increments over the level before; each level's bound; K1's
-    times beside v4's, on the same `inputs` (rows, ids, bounds)."""
+    with their increments over the level before; each level's bound, of the
+    work it needs and of the pairs it would walk without the cull; K1's
+    times beside v4's, on the same `inputs` (rows, ids, bounds). With `old`
+    (the previous design's K4, `k4_from`): each level in turns with the old
+    one by `card_ms` (old, new, new, old), and each level's outputs
+    torch.equal to the old level's (fails otherwise)."""
     from contextgs_tpu_torch.ops.rasterize import tile_kernel
     from contextgs_tpu_torch.scripts import kvariants
 
@@ -1619,18 +1702,42 @@ def k4_decompose(case, times, inputs, width, height, t_eps=1e-4):
     k1 = [cuda_ms(k1_call, 20), card_ms(k1_call),
           card_ms(k1_call, 10, cold=True)]
     bounds = k4_bounds(*inputs, width, height, t_eps)
-    return dict(phase="k4_decompose", case=case, k1_ms=k1[0],
-                k1_kernel_ms=k1[1], k1_cold_ms=k1[2],
-                levels=[dict(level=lv, ms=times[lv], kernel_ms=kernel_ms[lv],
-                             cold_ms=cold[lv],
-                             increment_ms=times[lv] - (times[lv - 1] if lv
-                                                       else 0.0),
-                             kernel_increment_ms=kernel_ms[lv] - (
-                                 kernel_ms[lv - 1] if lv else 0.0),
-                             bound_ms=bounds[lv]["bound_ms"],
-                             bound_term=bounds[lv]["bound_by"])
-                        for lv in K4_LEVELS],
-                v4_minus_k1_kernel_ms=kernel_ms[4] - k1[1])
+    res = dict(phase="k4_decompose", case=case, k1_ms=k1[0],
+               k1_kernel_ms=k1[1], k1_cold_ms=k1[2],
+               levels=[dict(level=lv, ms=times[lv], kernel_ms=kernel_ms[lv],
+                            cold_ms=cold[lv],
+                            increment_ms=times[lv] - (times[lv - 1] if lv
+                                                      else 0.0),
+                            kernel_increment_ms=kernel_ms[lv] - (
+                                kernel_ms[lv - 1] if lv else 0.0),
+                            bound_ms=bounds[lv]["bound_ms"],
+                            bound_term=bounds[lv]["bound_by"],
+                            share_of_bound=bounds[lv]["bound_ms"]
+                            / kernel_ms[lv],
+                            bound_walked_ms=bounds[lv]["bound_walked_ms"],
+                            bound_walked_term=bounds[lv]["bound_walked_by"],
+                            pairs_tested=bounds[lv].get("pairs_tested"),
+                            pairs_evaluated=bounds[lv].get(
+                                "pairs_evaluated"))
+                       for lv in K4_LEVELS],
+               v4_minus_k1_kernel_ms=kernel_ms[4] - k1[1])
+    if old is not None:
+        turns, equal = [], []
+        for lv in K4_LEVELS:
+            turns.append(in_turns(
+                lambda lv=lv: old(lv, *inputs, width, height, t_eps),
+                level(lv), card_ms))
+            got, was = level(lv)(), old(lv, *inputs, width, height, t_eps)
+            torch.cuda.synchronize()
+            equal.append([bool(torch.equal(a, b)) for a, b in zip(got, was)])
+        res["previous_design"] = dict(
+            kernel_ms=[t["prev_ms"] for t in turns],
+            new_kernel_ms=[t["ms"] for t in turns],
+            speedup=[t["prev_ms"] / t["ms"] for t in turns],
+            turns=turns, equal_rgb_t_last=equal)
+        check(all(all(e) for e in equal),
+              f"K4's levels equal to the previous design's on {case}")
+    return res
 
 
 def tile_lengths(bounds):
@@ -1667,7 +1774,7 @@ def check_k56(dev):
     return worst
 
 
-def kernel_labs(dev, k4_err, k56_err):
+def kernel_labs(dev, k4_err, k56_err, old_k4=None):
     """The main paths of the two kernel labs, each with its launch counts
     set to 0 just before and read just after: kvariants.run_all (K4's five
     levels on the lab's three configurations), then, on the same inputs,
@@ -1676,7 +1783,8 @@ def kernel_labs(dev, k4_err, k56_err):
     xpose_lab.run_all (K5, K6, the library call and the lab's torch rows)
     against the slab transpose's byte bound. Returns the kernels-line
     entries of K4's levels, K5 and K6; `k4_err` and `k56_err` are the
-    checks' largest errors."""
+    checks' largest errors. With `old_k4` (the previous design's K4), each
+    table's levels also in turns with its levels (`k4_decompose`)."""
     from contextgs_tpu_torch.scripts import kvariants, xpose_lab
 
     lab_w, lab_h = 16 * kvariants.TILES_X, 16 * kvariants.TILES_Y
@@ -1691,7 +1799,8 @@ def kernel_labs(dev, k4_err, k56_err):
     for config, times in k4_table.items():
         cpt, active = map(int, config.split("x"))
         lab = kvariants.lab_inputs(cpt, active, device=dev)
-        k4_lab[config] = k4_decompose(config, times, lab, lab_w, lab_h)
+        k4_lab[config] = k4_decompose(config, times, lab, lab_w, lab_h,
+                                      old=old_k4)
         if config == one:
             k4_lab[config]["plain_ms"] = [cuda_ms(
                 lambda: kvariants.blend_variant_reference(
@@ -1741,6 +1850,7 @@ def kernel_labs(dev, k4_err, k56_err):
             replaces="scripts/kvariants.py:36", launches=k4_launches[lv],
             max_abs_err=k4_err[lv], ms=level["ms"],
             plain_ms=k4_lab[one]["plain_ms"][lv], bound_ms=level["bound_ms"],
+            bound_walked_ms=level["bound_walked_ms"],
             bound_by="bytes" if level["bound_term"] == "bytes"
             else "operations", bound_term=level["bound_term"],
             library_ms=None, kernel_ms=level["kernel_ms"],
@@ -2943,6 +3053,7 @@ def main() -> int:
     prev_offset = prev_offset_sources()
     knockouts = k2_knockout_sources()
     geometry, geometry_sources = k1_geometry_sources()
+    prev_k4 = PREV_K4 if os.path.exists(PREV_K4) else None
     check(reference.FWD_WARP == k1_warp(geometry),
           "reference.FWD_WARP is the warp of K1's source")
     t0 = time.perf_counter()
@@ -2951,11 +3062,13 @@ def main() -> int:
                      + (tuple(prev.values()) if prev else ())
                      + (tuple(prev_offset.values()) if prev_offset else ())
                      + tuple(knockouts.values())
-                     + tuple(geometry_sources.values()))
+                     + tuple(geometry_sources.values())
+                     + ((prev_k4,) if prev_k4 else ()))
     build_s = time.perf_counter() - t0
     coder.library()                      # the range coder, host C++
     k1_geometries = {name: k1_from(src)
                      for name, src in geometry_sources.items()}
+    old_k4 = k4_from(prev_k4) if prev_k4 else None
 
     def ptxas(stem):
         out = cuda_build.build_log.get(stem, {}).get("ptxas", "")
@@ -2973,9 +3086,18 @@ def main() -> int:
          range_coder=coder.build_info,
          pil_imports=module_imports("PIL"),
          torchvision_imports=module_imports("torchvision"))
+    k4_levels = {f"v{lv}": {"ptxas": next(
+        (v for k, v in ptxas_kernels("kvariants").items() if f"ILi{lv}E" in k),
+        None), "blocks_per_sm": kvariants.blocks_per_sm(lv)}
+        for lv in K4_LEVELS}
+    if prev_k4:
+        for lv in K4_LEVELS:
+            k4_levels[f"v{lv}"]["previous_design_ptxas"] = next(
+                (v for k, v in ptxas_kernels("kvariants_prev").items()
+                 if f"ILi{lv}E" in k), None)
+    emit(phase="k4_ptxas", levels=k4_levels, previous_design=prev_k4)
     emit(phase="k1_ptxas", k1=ptxas_kernels("blend_forward"),
-         v4_first_design={k: v for k, v in ptxas_kernels("kvariants").items()
-                          if "ILi4E" in k},
+         k4_v4=k4_levels["v4"]["ptxas"],
          other_geometries={name: ptxas_kernels(f"blend_forward_{name}")
                            for name in geometry_sources},
          k2=ptxas_kernels("blend_backward"),
@@ -3006,19 +3128,19 @@ def main() -> int:
     scan.launches = 0
     k3_err = check_k3(dev)
     k3_check_launches = scan.launches
-    for name, case in golden_cases(dev):
+    for name, case in list(golden_cases(dev)) + list(cull_cases(dev)):
         check_k4(name, *case)
     tiles_x, tiles_y = kvariants.TILES_X, kvariants.TILES_Y
     k4_err = check_k4("lab_1x3600", *kvariants.lab_inputs(
         1, tiles_x * tiles_y, device=dev), 16 * tiles_x, 16 * tiles_y,
         big=True)
-    # K1 bit-equal to the first design (K4's level 4), and so is every
-    # other geometry of K1's
+    # K1 bit-equal to K4's level 4, and so is every other geometry of
+    # K1's; and to the previous design's level 4 where its copy is present
     for name, case in (list(golden_cases(dev)) + list(cull_cases(dev))
                        + [("lab_1x3600", (*kvariants.lab_inputs(
                            1, tiles_x * tiles_y, device=dev), 16 * tiles_x,
                            16 * tiles_y))]):
-        k1_equals_v4(name, *case, others=k1_geometries)
+        k1_equals_v4(name, *case, others=k1_geometries, old_k4=old_k4)
     k56_err = check_k56(dev)
 
     cfg = TrainConfig(model=ModelConfig())
@@ -3134,7 +3256,8 @@ def main() -> int:
         "serve_100k_1280x720", [kvariants.run_variant(lv, rows, ids, bounds,
                                                       W, H)
                                 for lv in K4_LEVELS],
-        (rows, ids, bounds), W, H, t_eps), tile_lengths=tile_lengths(bounds))
+        (rows, ids, bounds), W, H, t_eps, old_k4),
+        tile_lengths=tile_lengths(bounds))
     # the last view's per-gaussian tile counts in depth order: the input of
     # the first prefix sum of ops/rasterize/sorting.py, K3's shape (a)
     proj = sort_kept["args"][0]
@@ -3380,13 +3503,21 @@ def main() -> int:
     emit(phase="k1_bound", case="train_last_step_1280x720",
          **k1_train_bound, k1_ms=k1_train_ms,
          share_of_bound=k1_train_bound["bound_ms"] / k1_train_ms)
-    # K1 against the first design: bit-equal, then in turns
+    # K4 on the training path's last inputs: check, then the stage split
+    check_k4("train_last_step_1280x720", rows, ids, bounds, W, H, kept[10],
+             big=True)
+    emit(**k4_decompose(
+        "train_last_step_1280x720", [kvariants.run_variant(
+            lv, rows, ids, bounds, W, H) for lv in K4_LEVELS],
+        (rows, ids, bounds), W, H, kept[10], old_k4),
+        tile_lengths=tile_lengths(bounds))
+    # K1 against K4's level 4: bit-equal, then in turns
     k1_turns = {}
     for case, args in (("serve_100k_1280x720", (*serve_k2[:3], W, H,
                                                 serve_k2[10])),
                        ("train_last_step_1280x720", (rows, ids, bounds, W, H,
                                                      kept[10]))):
-        k1_equals_v4(case, *args, others=k1_geometries)
+        k1_equals_v4(case, *args, others=k1_geometries, old_k4=old_k4)
         k1_turns[case] = k1_old_new(case, args, k1_geometries)
     # K2 against the previous one, in turns on the same inputs: the last
     # step's and the serve view's
@@ -3451,7 +3582,7 @@ def main() -> int:
 
     # ---- 8. the kernel labs: K4's stages of K1, K5 and K6 ----
     begin("kernel_labs")
-    lab_kernels = kernel_labs(dev, k4_err, k56_err)
+    lab_kernels = kernel_labs(dev, k4_err, k56_err, old_k4)
 
     # ---- 9. kernels line, card line, result ----
     begin("result")
@@ -3478,7 +3609,7 @@ def main() -> int:
              train_bound_by=contract_label(k1_train_bound),
              train_bound_walked_ms=k1_train_bound["bound_walked_ms"],
              geometry=geometry,
-             first_design_ms={case: t["v4_ms"]
+             k4_v4_ms={case: t["v4_ms"]
                               for case, t in k1_turns.items()},
              other_geometries_kernel_ms={
                  case: {n: g["ms"] for n, g in t["geometries"].items()}

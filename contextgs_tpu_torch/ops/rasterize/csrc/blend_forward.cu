@@ -13,11 +13,11 @@
 //
 // What bounds it. The result needs only the pairs whose alpha reaches 1/255
 // (22% of a full-width serve view's listed (pixel, instance) pairs): their
-// power, exp and blend. The first design (kept as level 4 of
-// scripts/csrc/kvariants.cu, its power rounded as here) walked every listed
-// pair with every pixel of the tile, so it was held by the instruction rate
-// of the walked pairs' power and exp (about 2.3 pairs an SM a clock against
-// 16 exps), at 4.5% of the needed pairs' bound.
+// power, exp and blend. The previous design (one thread a pixel, its power
+// rounded as here) walked every listed pair with every pixel of the tile,
+// so it was held by the instruction rate of the walked pairs' power and exp
+// (about 2.3 pairs an SM a clock against 16 exps), at 4.5% of the needed
+// pairs' bound.
 //
 // Design. One 256-thread block per 16x16 tile, one thread a pixel; each warp
 // covers kWarpW x kWarpH pixels (8x4: the tile is 2 x 4 such blocks), which
@@ -40,20 +40,22 @@
 // tile once all its pixels are done.
 //
 // Registers. __launch_bounds__(256, 8) keeps 2048 threads an SM, as the
-// first design did, which caps a thread at 32 registers. Under that cap the
+// previous design did, which caps a thread at 32 registers. Under that cap the
 // walk's cost is its instruction count. With separate shared arrays, nvcc
 // recomputed their addresses and the pixel's coordinates in every step of
 // the walk (seen in the SASS). So the instances share one record array, one
 // shared base with the lists, and the pixel's coordinates live only as
 // floats, which leaves fewer values to keep across the walk.
 //
-// What must not change. Every pair culled is one the first design skipped
-// (alpha < 1/255: it went on without touching T), each pixel runs the same
-// float32 expressions on the same instances in the same order (the power
-// rounded op by op, plain expf, no fast math), and last_contrib is the list position (1-based) of the
-// last instance blended, taken from the position and not from a count of
-// instances walked. So rgb, final_T and last_contrib equal the first
-// design's bit for bit; chip_smoke.py holds them equal to K4's level 4.
+// What must not change. Every pair culled is one the previous design
+// skipped (alpha < 1/255: it went on without touching T), each pixel runs
+// the same float32 expressions on the same instances in the same order (the
+// power rounded op by op, plain expf, no fast math), and last_contrib is the
+// list position (1-based) of the last instance blended, taken from the
+// position and not from a count of instances walked. So rgb, final_T and
+// last_contrib equal the previous design's bit for bit; chip_smoke.py holds
+// them equal to K4's level 4 (scripts/csrc/kvariants.cu: this design with
+// its row gather staged by cp.async, double-buffered).
 //
 // Left for later: a faster exp (changes bits), cp.async staging of the row
 // gather, balancing tiles of very different list lengths.
@@ -86,7 +88,7 @@ constexpr int kWarpH = kLaneRows * kPerThread;
 constexpr int kThreads = kPix / kPerThread;
 constexpr int kWarps = kThreads / 32;
 constexpr int kWarpCols = kTile / kWarpW;
-// blocks an SM keeps: 2048 threads, as many as the first design kept
+// blocks an SM keeps: 2048 threads, as many as the previous design kept
 constexpr int kMinBlocks = 2048 / kThreads;
 static_assert(kWarps <= 8, "a warp mask is one byte");
 

@@ -3,19 +3,27 @@
 `run_variant`).
 
 The lab times the forward built up stage by stage to see where its time
-goes. Here each level is a stage of K1's own loop (`csrc/kvariants.cu`; K1
-is `ops/rasterize/csrc/blend_forward.cu`), with K1's inputs and outputs:
+goes. Here each level is a stage of K1's design (`csrc/kvariants.cu`; K1 is
+`ops/rasterize/csrc/blend_forward.cu`: 8x4-pixel warps walking per-warp
+lists compacted from each instance's alpha footprint), with K1's inputs and
+outputs:
 
     v0_empty          reads the tile's bounds; rgb 0, T 1, last_contrib 0
-    v1_gather         + the batch loop and the row gather into shared memory
-    v2_power          + power, exp and alpha for every pair (K1's skip rules)
+    v1_gather         + the batch loop and the row gather into the records
+    v2_power          + footprint, warp masks, per-warp lists, and power,
+                      exp and alpha on the listed pairs (no early exit)
     v3_transmittance  + T, the t_eps test, the early exit and last_contrib
-    v4_full           + the colour: K1 itself
+    v4_full           + the colour: K1's function by K1's walk
 
 Levels 1-3 write a sink in place of the colour, the lab's (`:72-89`):
 rgb[c] = 1e-30 Σ row[c] over the first instance of every 128-instance chunk
 (v1; mean x, mean y, conic a), 1e-30 Σ alpha (v2), 1e-30 Σ alpha·T (v3).
-Level 3's T and last_contrib are K1's.
+Level 3's T and last_contrib are K1's. The cull drops only pairs whose
+alpha is under 1/255, which every level skips, so the plain versions
+below hold for the culled walk bit for bit. Level 4 differs from K1 only in
+its staging: the row gather of the next batch lands by `cp.async` in a
+second buffer while the warps walk this one, so v4 against K1 is what
+asynchronous staging is worth to K1.
 
 Unlike the lab, the stages carry T across chunks, as K1 does: the lab's v3
 restarts T at 1 in every chunk, and its v4 can blend a pixel again at a
@@ -26,7 +34,10 @@ launches K4 at that level or raises, on a CPU tensor it runs the plain
 version `blend_variant_reference`. `launches[level]` counts the launches of
 each level in this process. `run_all` and `main` run the lab's table: v0-v4
 on the lab's instance table at 1x3600, 2x3600 and 8x450 (chunks of 128 per
-active tile x active tiles of the 80x45 tiles of a 1280x720 view):
+active tile x active tiles of the 80x45 tiles of a 1280x720 view). The
+table's instances lie anywhere in the image, so almost none meets its
+tile: there v2-v4 time the gather and the footprint pass, and the inputs
+of a rendered view are what split K1's time.
 
     python -m contextgs_tpu_torch.scripts.kvariants
 """
@@ -59,6 +70,12 @@ BUDGET = 768 * 1024         # the lab's table holds BUDGET + tiles·CHUNK rows
 # tiles active): 1x3600, 2x3600 and 8x450 on the 80x45 tiles
 CONFIGS = ((1, 1), (2, 1), (8, 8))
 PAIRS_STEP = 1 << 16        # instances a step of the plain v2 takes
+
+# blend_variant's C arguments: level, rows, ids, bounds, width, height,
+# tiles_x, n_tiles, t_eps, rgb, final_t, last_contrib (the stream is added
+# by `launch`)
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+            + [ctypes.c_float] + [ctypes.c_void_p] * 4)
 
 launches = [0] * len(LEVELS)
 
@@ -185,10 +202,7 @@ def blend_variant(level: int, rows: torch.Tensor, gauss_ids: torch.Tensor,
     last = torch.empty((height, width), dtype=torch.int32, device=rows.device)
     if n_tiles == 0:
         return rgb, final_t, last
-    fn = c_function(SOURCE, "blend_variant",
-                    [ctypes.c_int] + [ctypes.c_void_p] * 3
-                    + [ctypes.c_int] * 4 + [ctypes.c_float]
-                    + [ctypes.c_void_p] * 4)
+    fn = c_function(SOURCE, "blend_variant", ARGTYPES)
     err = launch(fn, rows.device, level, rows.data_ptr(),
                  gauss_ids.data_ptr(), tile_bounds.data_ptr(), width, height,
                  tiles_x, n_tiles, t_eps, rgb.data_ptr(), final_t.data_ptr(),
@@ -198,6 +212,19 @@ def blend_variant(level: int, rows: torch.Tensor, gauss_ids: torch.Tensor,
                            f"failed with CUDA error {err}")
     launches[level] += 1
     return rgb, final_t, last
+
+
+def blocks_per_sm(level: int) -> int:
+    """The blocks of K4's `level` one SM of the current card can hold, by
+    CUDA's occupancy calculator (registers and shared memory)."""
+    fn = c_function(SOURCE, "blend_variant_blocks_per_sm",
+                    [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    blocks = ctypes.c_int(0)
+    err = fn(level, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"blocks_per_sm: CUDA error {err} at level "
+                           f"{level}")
+    return blocks.value
 
 
 def run_variant(level: int, rows, gauss_ids, tile_bounds, width: int,

@@ -510,6 +510,63 @@ def test_plain_model_of_k1_cull_is_bit_equal(case, monkeypatch):
         assert float(want[1].min()) < 1e-3 and int(want[2].max()) < len(ids)
 
 
+def _k4_lab_case():
+    """A small lab table (`kvariants.lab_inputs`): tiles of 0-8 chunks of
+    128 instances over a 64x32 view."""
+    rows, ids, bounds = tkv.lab_inputs([1, 2, 8, 0, 3, 1, 1, 2], 8, seed=3,
+                                       tiles_x=4, tiles_y=2, budget=2048,
+                                       device="cpu")
+    return rows, ids, bounds, 64, 32
+
+
+@pytest.mark.parametrize("case", FOOTPRINT_CASES + ("saturating", "lab"))
+def test_plain_model_of_k4_cull_is_bit_equal(case, monkeypatch):
+    """A plain model of K4's cull — levels 2 and 3 of its plain version
+    with the alpha of every pair outside its warp's box, or under -tau, set
+    to 0 — gives level 2's sink (`_alpha_sums`, list order) and level 3's
+    sink, T and last_contrib bit-equal to the unculled ones: the staged
+    walk drops only pairs whose alpha is under 1/255 and meets the rest in
+    list order, so its levels compute what they computed without the
+    cull."""
+    if case == "lab":
+        rows, ids, bounds, w, h = _k4_lab_case()
+    else:
+        rows, ids, bounds, w, h = (torch.from_numpy(x) if isinstance(
+            x, np.ndarray) else x for x in _cull_model_case(case))
+    tiles_x, n_tiles = -(-w // 16), bounds.numel() - 1
+    want = [tkv.blend_variant_reference(lv, rows, ids, bounds, w, h)
+            for lv in (2, 3)]
+    keep, ntau = _k1_cull_keep(rows, ids, bounds, tiles_x)
+    # the same masks in list order, as _alpha_sums lays its pairs out
+    pos, tile_of = tkv._list_positions(bounds, n_tiles)
+    at = pos - bounds.to(torch.int64)[tile_of]
+    culled = []
+
+    def culled_alpha(kept_box, ntau_, plain):
+        def alpha(power, opacity):
+            kept = kept_box & ~(power < ntau_)
+            culled.append(int((~kept).sum()))
+            return torch.where(kept, plain(power, opacity), 0.0)
+        return alpha
+
+    monkeypatch.setattr(tkv, "alpha_from_power", culled_alpha(
+        keep[tile_of, at], ntau[tile_of, at], tkv.alpha_from_power))
+    monkeypatch.setattr(tref, "alpha_from_power", culled_alpha(
+        keep, ntau, tref.alpha_from_power))
+    got = [tkv.blend_variant_reference(lv, rows, ids, bounds, w, h)
+           for lv in (2, 3)]
+    assert len(culled) == 2           # one call a level: the masks line up
+    for level, (g, x) in enumerate(zip(got, want), 2):
+        for a, b in zip(g, x):
+            assert torch.equal(a, b), level
+    if case != "tiny_opacity":        # opacities under 1/255 blend nowhere
+        assert float(want[0][0].max()) > 0 and float(want[1][0].max()) > 0
+    if case != "large":               # radii of hundreds of pixels
+        assert min(culled) > 0
+    if case == "saturating":
+        assert float(want[1][1].min()) < 1e-3
+
+
 def test_blend_forward_rejects_bad_inputs():
     rows, ids, bounds = _chunk_boundary_rows()
     with pytest.raises(ValueError, match="unsupported device"):
@@ -803,31 +860,49 @@ def test_lane_cumsum_leaves_its_scratch_zeroed():
     assert len(tscan._scratch) >= 2
 
 
+K4_CASES = ("random", "chunk_boundary", "lab", "long_dense",
+            "long_sparse") + FOOTPRINT_CASES + ("saturating",)
+
+
+def _k4_case(case):
+    """(rows, ids, bounds, width, height) on the CPU for the K4 card test:
+    the golden cases, the small lab table, the footprint cases of the cull
+    model, and lists of up to 10 chunks of 128 (five batches of 256, so
+    that both staging buffers are refilled), dense enough to end pixels
+    early (`long_dense`, 32x32) or spread over a 128x128 view."""
+    if case == "random":
+        return (*(torch.from_numpy(x) for x in _random_rows(
+            np.random.default_rng(7), TILES_X, 2, 300)), W, H)
+    if case == "chunk_boundary":
+        return (*(torch.from_numpy(x) for x in _chunk_boundary_rows()), 16,
+                16)
+    if case == "lab":
+        return _k4_lab_case()
+    if case in ("long_dense", "long_sparse"):
+        side = 2 if case == "long_dense" else 8
+        cpt = [10, 5, 0, 3] + [0] * (side * side - 4)
+        rows, ids, bounds = tkv.lab_inputs(cpt, len(cpt), seed=5,
+                                           tiles_x=side, tiles_y=side,
+                                           budget=2048, device="cpu")
+        return rows, ids, bounds, 16 * side, 16 * side
+    return tuple(torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                 for x in _cull_model_case(case))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["random", "chunk_boundary", "lab"])
+@pytest.mark.parametrize("case", K4_CASES)
 @pytest.mark.parametrize("level", range(5))
 def test_kvariant_kernel_matches_plain_version(level, case):
     """K4 at each level against its plain version on the card: v0 exact;
     the sinks of v1 and v2 1e-5 relative; v3's sink and v4 2e-5 absolute
     (v3's unscaled). v4 equals K1 bit for bit, and v3's T and last_contrib
-    equal K1's."""
+    equal K1's, also where the staged walk culls (the footprint cases) and
+    where a tile's list spans five batches."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: run this file on the GPU machine")
     dev = torch.device("cuda")
-    if case == "random":
-        w, h = W, H
-        rows, ids, bounds = (torch.from_numpy(x).to(dev) for x in
-                             _random_rows(np.random.default_rng(7), TILES_X,
-                                          2, 300))
-    elif case == "chunk_boundary":
-        w, h = 16, 16
-        rows, ids, bounds = (torch.from_numpy(x).to(dev)
-                             for x in _chunk_boundary_rows())
-    else:
-        w, h = 64, 32
-        rows, ids, bounds = tkv.lab_inputs([1, 2, 8, 0, 3, 1, 1, 2], 8,
-                                           tiles_x=4, tiles_y=2, budget=2048,
-                                           device=dev)
+    rows, ids, bounds, w, h = _k4_case(case)
+    rows, ids, bounds = rows.to(dev), ids.to(dev), bounds.to(dev)
     before = list(tkv.launches)
     got = tkv.blend_variant(level, rows, ids, bounds, w, h)
     torch.cuda.synchronize()
@@ -847,6 +922,18 @@ def test_kvariant_kernel_matches_plain_version(level, case):
         assert torch.equal(got[1], k1[1]) and torch.equal(got[2], k1[2])
     if level == 4:
         assert torch.equal(got[0], k1[0])
+
+
+def test_k4_long_cases_span_batches():
+    """The long K4 card cases list more than two batches of 256 in a tile,
+    so both staging buffers are refilled; the dense one ends pixels early
+    (T under t_eps), the sparse one walks every batch."""
+    for case in ("long_dense", "long_sparse"):
+        rows, ids, bounds, w, h = _k4_case(case)
+        assert int((bounds[1:] - bounds[:-1]).max()) > 2 * 256
+        pairs = tref.blend_tiles_reference(rows, ids, bounds, w, h, w // 16,
+                                           count_pairs=True)[3]
+        assert (pairs["tested"] > pairs["blended"]) == (case == "long_dense")
 
 
 TRANSPOSE_NC = [1, 7, 8, 9, 8394]      # 8394: the lab's [B/128, 128, 16]

@@ -194,8 +194,32 @@ after every phase has held.
    scripts.sweep over λ 0.004 and 0.0005 on a 128x128, 16-view, 1k-point
    synthetic scene, 100 steps each (each run a drivers.train process on
    the card): both exit 0 with a results.json (size and PSNR printed).
+6b'. raster_tools — the scripts that measure the rasterizer, after
+   k2_knockouts (raster_tools_phase), each through its module-level
+   measure with K1's and K2's counts set to 0 just before and read just
+   after: scripts.profile at the bench frame (200k gaussians, 1280x720: 10
+   chained forward+backward steps, then each stage by CUDA events and by
+   the profiler's kernel time), scripts.thr_sweep's five default rows
+   (200k, 1M and 2M gaussians at 1280x720, 200k and 1M at 1920x1080, 20
+   chained steps each, ms, Mpix/s, demand and peak memory),
+   scripts.fps_bench (100k anchors, 32 views, 1280x720: the per-view loop
+   and the chained one), scripts.kern_micro's six (chunks a tile, active
+   tiles) configs of the lab table, scripts.corner_diag at its defaults,
+   and scripts.r3_suite with one λ on a 128x128, 16-view, 1k-point
+   synthetic scene, 100 steps, in a temporary directory, read back by
+   scripts.rd_table. Checked: each script's K1 and K2 launches as its
+   protocol makes them; K1 (2e-4, mean 1e-6) and K2 (inside the plain
+   envelope) against their plain versions on the arguments kept from
+   profile's run, from thr_sweep's two largest rows and from each of
+   kern_micro's six configs (cotangents of ones); thr_sweep's and
+   corner_diag's demands within 1e-4 of a CPU projection of the same
+   draws; the chained sum of the images' means within 1e-6 of the naive
+   one; corner_diag's n_valid equal to its tight demand; one r3_suite
+   entry with rc 0 and results, an rd_table row with a finite PSNR, and
+   the λ skipped on a second call. Printed: each script's numbers and the
+   phase's seconds.
 6c. sharded — multi-GPU training (parallel/, train/sharded_loop.py),
-   after k2_knockouts. offset_turns, where build/prev_offset holds K1's
+   after raster_tools. offset_turns, where build/prev_offset holds K1's
    and K2's sources from before the row offset (blend_forward_nooffset.cu,
    blend_backward_nooffset.cu, from git history; k1_ptxas prints their
    registers and spills beside the new ones): the two against the new on
@@ -259,8 +283,9 @@ after every phase has held.
    the slab transpose's byte bound.
 9. the `kernels` line (K1's launches: serve, train, viewer, codec,
    make_synth_scene, drivers, bench, sharded_bands, sharded_train,
-   sharded_driver and scaling_bench; K2's: train, drivers, bench, the
-   sharded three and scaling_bench),
+   sharded_driver, scaling_bench and the raster_tools scripts; K2's:
+   train, drivers, bench, the sharded three, scaling_bench and the
+   raster_tools scripts but fps_bench),
    then the card line from nvidia-smi, then the result.
 """
 
@@ -458,28 +483,6 @@ def card_ms(fn, reps=20, cold=False):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
-
-
-def decoded_scene(n_anchors, seed, cfg, dev):
-    """The recipe of scripts/fps_bench.py:55-63, seeded from numpy."""
-    from contextgs_tpu_torch.compression.codec import DecodedScene
-    from contextgs_tpu_torch.models.mlps import init_decoder_mlps
-
-    rng = np.random.default_rng(seed)
-    n, f, k = n_anchors, cfg.feat_dim, cfg.n_offsets
-
-    def put(x):
-        return torch.from_numpy(x.astype(np.float32)).to(dev)
-
-    return DecodedScene(
-        anchor=put(rng.uniform(-2, 2, (n, 3))),
-        feat=put(rng.normal(size=(n, f)) * 0.3),
-        scaling=put(rng.uniform(0.01, 0.05, (n, 6))),
-        offsets=put(rng.normal(size=(n, k, 3)) * 0.3),
-        masks=put(rng.random((n, k)) < 0.7),
-        hyper=put(np.zeros((n, f // cfg.hyper_divisor))),
-        mlps=init_decoder_mlps(cfg, torch.Generator().manual_seed(seed), dev),
-        prior=None, level_scales=[], voxel_size=0.001)
 
 
 def orbit_cameras(n, width, height, target_seed):
@@ -1350,30 +1353,6 @@ def check_k3(dev):
     return worst
 
 
-def device_profile(fn, reps=20):
-    """Kernel time per call of `fn` by torch.profiler (the device's own
-    time, without the gaps in which it waits for the host to launch), and
-    the device operations a call runs, by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return (sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0))
-                for e in ops) / 1e3 / reps,
-            {e.key[:60]: e.count / reps for e in ops})
-
-
-def device_ms(fn, reps=20):
-    return device_profile(fn, reps)[0]
-
-
 def host_us(fn, calls=1000):
     """Host time per call of `fn` over back-to-back calls, a synchronize
     after: what the host spends to enqueue a call."""
@@ -1396,6 +1375,7 @@ def time_k3(x, prev=None, reps=50):
     read once and written once. With `prev` (the previous K3), old and new in
     turns by events and by `card_ms` (host gaps hidden)."""
     from contextgs_tpu_torch.ops import scan
+    from contextgs_tpu_torch.scripts import device_profile
 
     n_bytes = 2 * x.numel() * x.element_size()
 
@@ -1416,7 +1396,7 @@ def time_k3(x, prev=None, reps=50):
         k3_host_us=host["ms"], library_host_us=host["prev_ms"],
         plain_ms=cuda_ms(lambda: scan.lane_cumsum_reference(x), reps),
         k3_device_ms=k3_device_ms, k3_device_ops=k3_device_ops,
-        library_device_ms=device_ms(library),
+        library_device_ms=device_profile(library)[0],
         bytes=n_bytes, bound_ms=n_bytes / PEAK_HBM_BYTES * 1e3)
     if prev is not None:
         old = prev_k3(prev)
@@ -3023,6 +3003,203 @@ def scaling_phase(dev):
     return k1, k2
 
 
+# the raster_tools phase: the rasterizer-measuring scripts at their
+# defaults; thr_sweep's two largest rows and kern_micro's six configs held
+# against the plain versions;
+# r3_suite with one λ on the sweep's small scene, 100 steps
+PROFILE_ITERS = 10
+THR_ITERS = 20
+THR_CHECKED = ((2_000_000, 1280, 720), (1_000_000, 1920, 1080))
+# the card's demand against the CPU's (a radius can move by one for a very
+# large splat): at most this share of the CPU's demand apart
+DEMAND_RTOL = 1e-4
+FPS_BENCH = dict(anchors=100_000, views=32, width=1280, height=720)
+KERN_MICRO_ITERS = 20
+R3_LMBDA = 0.004
+R3_STEPS = 100
+
+
+def counted(fn):
+    """fn() with K1's and K2's counts set to 0 just before; → (its output,
+    K1's launches, K2's launches)."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+
+    tile_kernel.launches = tile_kernel.backward_launches = 0
+    out = fn()
+    return out, tile_kernel.launches, tile_kernel.backward_launches
+
+
+def kept_kernels(fn):
+    """fn() with the last arguments of ops.rasterize's blend_forward and
+    blend_backward kept; → (its output, K1's launches, K2's launches, K1's
+    last arguments, K2's last arguments)."""
+    import contextgs_tpu_torch.ops.rasterize as trz
+
+    k1, k2 = {}, {}
+    with wrapped(trz, "blend_forward", keep_args(k1)), \
+            wrapped(trz, "blend_backward", keep_args(k2)):
+        out = counted(fn)
+    return (*out, k1.get("args"), k2.get("args"))
+
+
+def plain_checks(where, k1_args, k2_args, width, height):
+    """K1 (max 2e-4, mean 1e-6) and K2 (inside the plain envelope) against
+    their plain versions on the arguments kept from a script's run."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        k1 = compare_k1(*k1_args[:3], width, height)
+        k2 = compare_k2(*k2_args[:3], width, height, *k2_args[6:8])
+    res = dict(k1=k1, k2=k2, seconds=time.perf_counter() - t0)
+    check(k1["finite"] and k1["max_abs"] <= 2e-4 and k1["mean_abs"] <= 1e-6,
+          f"{where}: K1 against its plain version")
+    check(k2["finite"] and k2["envelope_err"] <= ENVELOPE,
+          f"{where}: K2 inside the plain envelope")
+    return res
+
+
+def raster_tools_phase(dev, root):
+    """The port's rasterizer-measuring scripts on the card, each run by its
+    module-level `measure` (or `main`) with K1's and K2's counts set to 0
+    just before and read just after: profile at the bench frame,
+    thr_sweep's five default rows, fps_bench (100k anchors, 32 views,
+    1280x720), kern_micro's six configs, corner_diag at its defaults, and
+    r3_suite (one λ on a 128x128, 16-view, 1k-point synthetic scene, 100
+    steps, in `root`) read back by rd_table. Gates: each script's K1 and
+    K2 launches as its protocol makes them; K1 and K2 against their plain
+    versions on profile's frame, on thr_sweep's two largest rows and on
+    each of kern_micro's six configs;
+    thr_sweep's and corner_diag's demands against a CPU projection of the
+    same draws (DEMAND_RTOL); fps_bench's chained and naive sums of the
+    images' means (1e-6 relative); corner_diag's n_valid equal to its
+    tight demand; r3_suite's entry with rc 0 and results, an rd_table row
+    with a finite PSNR, and the λ skipped on a second call. Returns
+    {script: (K1 launches, K2 launches)}."""
+    from contextgs_tpu_torch.drivers import bench
+    from contextgs_tpu_torch.scripts import (corner_diag, fps_bench,
+                                             kern_micro, profile, r3_suite,
+                                             rd_table, thr_sweep)
+
+    launches = {}
+    t_phase = time.perf_counter()
+
+    # profile: E2E, then each stage by events and by the profiler
+    it = PROFILE_ITERS
+    res, k1, k2, k1_args, k2_args = kept_kernels(
+        lambda: profile.measure(dev, iters=it))
+    launches["profile"] = (k1, k2)
+    checks = plain_checks("profile", k1_args, k2_args, res["width"],
+                          res["height"])
+    del k1_args, k2_args
+    emit(phase="raster_tools", script="profile", **res,
+         k1_launches=k1, k2_launches=k2, plain=checks)
+    check(k1 == bench.WARMUP + it + 1 + 2 * (it + 1)
+          and k2 == bench.WARMUP + it + 2 * (it + 1),
+          "profile: K1 and K2 once an E2E step and a stage call")
+
+    # thr_sweep: the five default rows; the two largest checked
+    rows = []
+    for g, w, h in thr_sweep.configs(thr_sweep.DEFAULT):
+        row, k1, k2, k1_args, k2_args = kept_kernels(
+            lambda: thr_sweep.measure(g, w, h, THR_ITERS, dev))
+        launches[f"thr_sweep_{g}x{w}x{h}"] = (k1, k2)
+        if (g, w, h) in THR_CHECKED:
+            row["plain"] = plain_checks(f"thr_sweep {g}x{w}x{h}", k1_args,
+                                        k2_args, w, h)
+        del k1_args, k2_args
+        torch.cuda.empty_cache()
+        means, scales, quats, _, opac = thr_sweep.inputs(g, "cpu")
+        row["demand_cpu"] = thr_sweep.probe_demand(
+            means, scales, quats, opac, bench.camera_kwargs(w, h, "cpu"))
+        del means, scales, quats, opac
+        row.update(k1_launches=k1, k2_launches=k2)
+        emit(phase="raster_tools", script="thr_sweep", **row)
+        rows.append(row)
+        check(k1 == k2 == bench.WARMUP + THR_ITERS,
+              f"thr_sweep {g}x{w}x{h}: K1 and K2 once a step")
+        check(abs(row["demand"] - row["demand_cpu"])
+              <= DEMAND_RTOL * row["demand_cpu"],
+              f"thr_sweep {g}x{w}x{h}: the demand against the CPU's")
+        check(math.isfinite(row["ms_per_iter"]) and row["ms_per_iter"] > 0,
+              f"thr_sweep {g}x{w}x{h}: a time")
+
+    # fps_bench: the naive loop and the chained one
+    res, k1, k2 = counted(lambda: fps_bench.measure(**FPS_BENCH, device=dev))
+    launches["fps_bench"] = (k1, k2)
+    emit(phase="raster_tools", script="fps_bench", **res, k1_launches=k1,
+         k2_launches=k2)
+    check(k1 == 1 + 2 * FPS_BENCH["views"] and k2 == 0,
+          "fps_bench: K1 once a view")
+    check(res["naive_sum"] > 0 and abs(res["chained_sum"] - res["naive_sum"])
+          <= 1e-6 * abs(res["naive_sum"]),
+          "fps_bench: the chained sum of the means against the naive one")
+
+    # kern_micro: K1 and K2 on the lab table, six configs, each checked
+    table, k1, k2 = counted(lambda: kern_micro.measure(
+        dev, KERN_MICRO_ITERS, keep_kernel_args=True))
+    launches["kern_micro"] = (k1, k2)
+    for row in table:
+        kept = row.pop("kernel_args")
+        a1, a2 = kept["blend_forward"], kept["blend_backward"]
+        row["plain"] = plain_checks(f"kern_micro {row['label']}", a1, a2,
+                                    *a1[3:5])
+        del kept, a1, a2
+    emit(phase="raster_tools", script="kern_micro", iters=KERN_MICRO_ITERS,
+         table=table, k1_launches=k1, k2_launches=k2)
+    n = len(kern_micro.CONFIGS)
+    check(k1 == n * (KERN_MICRO_ITERS + 2) and k2 == n * (KERN_MICRO_ITERS + 1),
+          "kern_micro: K1 and K2 as time_ms calls them")
+
+    # corner_diag: on the card and on the CPU
+    diag = corner_diag.measure(device=dev)
+    diag_cpu = corner_diag.measure(device="cpu")
+    emit(phase="raster_tools", script="corner_diag", **diag, cpu=diag_cpu)
+    check(diag["n_valid"] == diag["demand_tight"],
+          "corner_diag: n_valid is the tight demand")
+    for key in ("demand_plain", "demand_tight"):
+        check(abs(diag[key] - diag_cpu[key]) <= DEMAND_RTOL * diag_cpu[key],
+              f"corner_diag: {key} against the CPU's")
+
+    # r3_suite: one λ, then rd_table, then the skip
+    out = os.path.join(root, "r3")
+    argv = ["--out", out, *SWEEP_SCENE, "--iters", str(R3_STEPS),
+            "--lmbdas", f"{R3_LMBDA:g}",
+            "--extra_flags", " ".join(SWEEP_SCHEDULE)]
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = r3_suite.main(argv)
+    r3_s = time.perf_counter() - t0
+    with open(os.path.join(out, "summary.jsonl")) as f:
+        entries = [json.loads(x) for x in f if x.strip()]
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        rd_rc = rd_table.main(["--out", out])
+    rd_lines = table.getvalue().splitlines()
+    again = io.StringIO()
+    with contextlib.redirect_stdout(again):
+        rc_again = r3_suite.main(argv)
+    with open(os.path.join(out, "summary.jsonl")) as f:
+        n_entries = sum(1 for x in f if x.strip())
+    emit(phase="raster_tools", script="r3_suite", argv=argv, seconds=r3_s,
+         entries=[{k: v for k, v in e.items() if k != "results"}
+                  for e in entries],
+         psnr=[e.get("results", {}).get("ours", {}).get("PSNR")
+               for e in entries],
+         rd_table=rd_lines, second_call=again.getvalue().splitlines())
+    check(rc == 0 and len(entries) == 1 and entries[0]["rc"] == 0
+          and entries[0]["lmbda"] == R3_LMBDA and "results" in entries[0],
+          "r3_suite: one entry, rc 0, with results")
+    psnr = rd_lines[2].split("|")[3].strip() if len(rd_lines) == 3 else ""
+    check(rd_rc == 0 and math.isfinite(float(psnr or "nan")),
+          f"rd_table: a row with a PSNR ({rd_lines})")
+    check(rc_again == 0 and n_entries == 1
+          and f"skip λ={R3_LMBDA:g} (done)" in again.getvalue(),
+          "r3_suite: the λ skipped on a second call")
+    emit(phase="raster_tools_done", seconds=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -3039,6 +3216,7 @@ def main() -> int:
     from contextgs_tpu_torch.ops import cuda_build, scan
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
     from contextgs_tpu_torch.scripts import kvariants, xpose_lab
+    from contextgs_tpu_torch.scripts.fps_bench import decoded_scene
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -3551,6 +3729,16 @@ def main() -> int:
     emit(phase="k2_knockouts", case="serve_100k_1280x720",
          **k2_knockouts(knockouts, serve_k2))
 
+    # ---- 6b'. the scripts that measure the rasterizer, and r3_suite ----
+    begin("raster_tools")
+    root = tempfile.mkdtemp(prefix="contextgs_raster_tools_")
+    try:
+        raster_launches = raster_tools_phase(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    raster_k1 = {k: v[0] for k, v in raster_launches.items()}
+    raster_k2 = {k: v[1] for k, v in raster_launches.items() if v[1]}
+
     # ---- 6c. sharded: bands, two ranks on the card, NCCL at one ----
     begin("sharded")
     sharded_k1, sharded_k2 = sharded_phase(
@@ -3595,11 +3783,12 @@ def main() -> int:
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:317",
              launches=(k1_launches + train_k1 + viewer_k1 + codec_k1
                        + sum(drivers_k1.values())
-                       + sum(sharded_k1.values()) + scaling_k1),
+                       + sum(sharded_k1.values()) + scaling_k1
+                       + sum(raster_k1.values())),
              launches_by_path=dict(serve=k1_launches, train=train_k1,
                                    viewer=viewer_k1, codec=codec_k1,
                                    **drivers_k1, **sharded_k1,
-                                   scaling_bench=scaling_k1),
+                                   scaling_bench=scaling_k1, **raster_k1),
              max_abs_err=k1_res["max_abs"], ms=k1_ms, plain_ms=plain_ms,
              bound_ms=k1_bound["bound_ms"],
              bound_by=contract_label(k1_bound),
@@ -3618,9 +3807,11 @@ def main() -> int:
              source="contextgs_tpu_torch/ops/rasterize/csrc/blend_backward.cu",
              replaces="contextgs_tpu/ops/rasterize/tile_kernel.py:548",
              launches=(train_k2 + sum(drivers_k2.values())
-                       + sum(sharded_k2.values()) + scaling_k2),
+                       + sum(sharded_k2.values()) + scaling_k2
+                       + sum(raster_k2.values())),
              launches_by_path=dict(train=train_k2, **drivers_k2,
-                                   **sharded_k2, scaling_bench=scaling_k2),
+                                   **sharded_k2, scaling_bench=scaling_k2,
+                                   **raster_k2),
              max_abs_err=k2_res["max_abs"], ms=k2_ms, plain_ms=k2_plain_ms,
              bound_ms=k2_bound["bound_ms"],
              bound_by=contract_label(k2_bound),

@@ -150,6 +150,9 @@ class OptimizationConfig:
 # why the port refuses the JAX package's `--budget` flag (drivers, scripts)
 NO_BUDGET = ("the port's tile-instance lists are sized per render, so it has "
              "no instance budget")
+# why the port's scripts refuse the JAX scripts' `--chunk` flag
+NO_CHUNK = ("the port's kernels take each tile's instance list whole, so "
+            "there is no chunk to set")
 
 
 @dataclass(frozen=True)

@@ -14,6 +14,7 @@ refused with a message that says why.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import logging
 import os
@@ -29,10 +30,19 @@ from contextgs_tpu_torch.scene.dataset_readers import SceneInfo, load_scene
 LOGGER = "contextgs_tpu_torch"
 
 
+class Refused(argparse.Action):
+    """A flag of the JAX package that has no meaning in the port: giving it
+    fails the parse with the reason, which is the flag's help after
+    "refused: "."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is refused: "
+                     f"{self.help.removeprefix('refused: ')}")
+
+
 def add_common(p) -> None:
     """The flags every driver takes besides its own."""
-    p.add_argument("--budget", type=int, default=None,
-                   help="refused: " + NO_BUDGET)
+    p.add_argument("--budget", action=Refused, help="refused: " + NO_BUDGET)
     p.add_argument("--force_cpu", action="store_true",
                    help="run on the CPU (the plain PyTorch versions of the "
                         "kernels); without it the driver runs on the CUDA "
@@ -40,9 +50,7 @@ def add_common(p) -> None:
 
 
 def check_common(p, args) -> torch.device:
-    """Refuse `--budget`; the device `--force_cpu` asks for."""
-    if args.budget is not None:
-        p.error(f"--budget is refused: {NO_BUDGET}")
+    """The device `--force_cpu` asks for."""
     return resolve_device("cpu" if args.force_cpu else None)
 
 

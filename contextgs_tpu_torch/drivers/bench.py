@@ -34,58 +34,85 @@ CARD = dict(width=1280, height=720, n_gauss=200_000, iters=30)
 CPU = dict(width=64, height=64, n_gauss=500, iters=2)
 
 
-def inputs(n_gauss: int, device) -> tuple:
-    """bench.py's seeded gaussians: means, scales, quats, colors, opacities."""
-    rng = np.random.default_rng(0)
+def geometry(rng, n_gauss: int, scale_lo: float = 0.004,
+             scale_hi: float = 0.02) -> tuple:
+    """bench.py's first draws from `rng`, which the rasterizer scripts
+    share: means, scales U(scale_lo, scale_hi) and unit quats, float32."""
     means = np.stack([rng.uniform(-3, 3, n_gauss), rng.uniform(-2, 2, n_gauss),
                       rng.uniform(2.0, 12.0, n_gauss)], 1).astype(np.float32)
-    scales = rng.uniform(0.004, 0.02, (n_gauss, 3)).astype(np.float32)
+    scales = rng.uniform(scale_lo, scale_hi, (n_gauss, 3)).astype(np.float32)
     quats = rng.normal(size=(n_gauss, 4)).astype(np.float32)
     quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    return means, scales, quats
+
+
+def inputs(n_gauss: int, device, scale_lo: float = 0.004,
+           scale_hi: float = 0.02) -> tuple:
+    """bench.py's seeded gaussians: means, scales, quats, colors, opacities;
+    the scales U(scale_lo, scale_hi)."""
+    rng = np.random.default_rng(0)
+    means, scales, quats = geometry(rng, n_gauss, scale_lo, scale_hi)
     colors = rng.uniform(0, 1, (n_gauss, 3)).astype(np.float32)
     opac = rng.uniform(0.2, 0.9, n_gauss).astype(np.float32)
     return tuple(torch.from_numpy(x).to(device)
                  for x in (means, scales, quats, colors, opac))
 
 
-def measure(device, width: int, height: int, n_gauss: int,
-            iters: int) -> dict:
-    """Mpix/s of `iters` chained forward+backward rasterizations."""
+def camera_kwargs(width: int, height: int, device) -> dict:
+    """`rasterize`'s camera arguments for bench.py's camera: identity pose,
+    horizontal field of view 1.2 rad, black background."""
     cam = Camera(uid=0, colmap_id=0, R=np.eye(3), T=np.zeros(3), fov_x=1.2,
                  fov_y=2 * math.atan(math.tan(0.6) * height / width),
                  image=None, width=width, height=height)
-    cam_kw = dict(world_view=torch.from_numpy(cam.world_view).to(device),
-                  full_proj=torch.from_numpy(cam.full_proj).to(device),
-                  tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, width=width,
-                  height=height, bg=torch.zeros(3, device=device))
-    means, *rest = inputs(n_gauss, device)
-    rest = [x.requires_grad_(True) for x in rest]
+    return dict(world_view=torch.from_numpy(cam.world_view).to(device),
+                full_proj=torch.from_numpy(cam.full_proj).to(device),
+                tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, width=width,
+                height=height, bg=torch.zeros(3, device=device))
 
-    def step(m):
-        m = m.detach().requires_grad_(True)
-        out = rasterize(m, *rest, **cam_kw)
-        grads = torch.autograd.grad((out.image * out.image).sum(), [m, *rest])
-        return (m + 0.0 * grads[0]).detach()   # chain via a data dependency
 
-    for _ in range(WARMUP):
-        means = step(means)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            means = step(means)
-        end.record()
-        end.synchronize()
-        seconds = start.elapsed_time(end) / 1e3
-        name = torch.cuda.get_device_name(device)
-    else:
+def step(means: torch.Tensor, rest, cam_kw: dict) -> torch.Tensor:
+    """One forward+backward rasterization: the gradients of sum(image²)
+    with respect to the means and `rest` (scales, quats, colors, opacities,
+    each requiring grad); returns the means plus 0·gradient, so that the
+    next step depends on this one."""
+    m = means.detach().requires_grad_(True)
+    out = rasterize(m, *rest, **cam_kw)
+    grads = torch.autograd.grad((out.image * out.image).sum(), [m, *rest])
+    return (m + 0.0 * grads[0]).detach()
+
+
+def chain_seconds(means, rest, cam_kw: dict, iters: int, device,
+                  warmup: int = WARMUP) -> float:
+    """Seconds of `iters` chained `step`s after `warmup` untimed ones: by
+    CUDA events around the whole chain on a CUDA device, by the host clock
+    on the CPU."""
+    for _ in range(warmup):
+        means = step(means, rest, cam_kw)
+    if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):
-            means = step(means)
-        seconds = time.perf_counter() - t0
-        name = "cpu"
+            means = step(means, rest, cam_kw)
+        return time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        means = step(means, rest, cam_kw)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def measure(device, width: int, height: int, n_gauss: int,
+            iters: int) -> dict:
+    """Mpix/s of `iters` chained forward+backward rasterizations."""
+    means, *rest = inputs(n_gauss, device)
+    rest = [x.requires_grad_(True) for x in rest]
+    seconds = chain_seconds(means, rest, camera_kwargs(width, height, device),
+                            iters, device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
     mpix_s = iters * width * height / seconds / 1e6
     return {"metric": "rasterize_fwd_bwd_throughput",
             "value": round(mpix_s, 2), "unit": "Mpix/s/chip",

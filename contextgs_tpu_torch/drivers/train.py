@@ -90,8 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from a training checkpoint of either "
                         "package (chkpnt{it}.pt, or the JAX package's "
                         "chkpnt{it}.pkl)")
-    p.add_argument("--train_vis_cap", type=int, default=None,
-                   help="refused: the port has no visible-gaussian cap")
+    p.add_argument("--train_vis_cap", action=drivers.Refused,
+                   help="refused: the port renders every visible gaussian "
+                        "of a training view, it has no visible cap")
     p.add_argument("--n_offsets", type=int, default=None,
                    help="gaussians decoded per anchor (ref n_offsets=10)")
     p.add_argument("--anchor_capacity", type=int, default=0,
@@ -139,11 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refuse(p: argparse.ArgumentParser, args) -> None:
-    """Exit with a message for a flag the port has no meaning for
-    (`--budget`: `drivers.check_common`)."""
-    if args.train_vis_cap is not None:
-        p.error("--train_vis_cap is refused: the port renders every visible "
-                "gaussian of a training view, it has no visible cap")
+    """Exit with a message for a flag the port has no meaning for, or for
+    one given without the flag it needs (`--budget` and `--train_vis_cap`
+    fail the parse itself: `drivers.Refused`)."""
     if args.backend != "auto":
         p.error("--backend is refused: the rasterizer runs K1 and K2 on CUDA "
                 "tensors and their plain versions on CPU tensors")

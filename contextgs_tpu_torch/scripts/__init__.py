@@ -11,10 +11,39 @@
 - the codec's audit `codec_diag` (bits per stream: ideal, window,
   quantized CDF, payload, escape);
 - the rate-distortion tools `sweep` (λ runs of `drivers.train`),
-  `rd_table` and `collect_results`.
+  `r3_suite` (one synthetic scene, a run a λ into `<out>/l{λ:g}/` and
+  `<out>/summary.jsonl`), `rd_table` (which reads that layout) and
+  `collect_results`;
+- the scripts that measure the rasterizer: `profile` (the bench frame's
+  forward+backward end to end, then stage by stage by CUDA events and by
+  the profiler's kernel time), `thr_sweep` (forward+backward Mpix/s from
+  200k gaussians at 1280x720 to 2M at 1280x720 and 1M at 1920x1080),
+  `fps_bench` (a decoded scene's views one by one against chained),
+  `kern_micro` (K1 and K2 per tile against per instance on the lab's
+  table) and `corner_diag` (tile instances whose alpha never reaches 1/255
+  in their tile).
 
 Each runs on the card unless asked for the CPU (`device="cpu"`, or
-`--force_cpu` on the command line).
+`--force_cpu` on the command line), for example at a small size:
+
+    python -m contextgs_tpu_torch.scripts.profile --gauss 2000 --width 96 \
+        --height 64 --iters 2 --force_cpu
+    python -m contextgs_tpu_torch.scripts.thr_sweep --iters 1 \
+        --configs 2000x96x64,2000x128x96 --force_cpu
+    python -m contextgs_tpu_torch.scripts.fps_bench --anchors 300 --views 3 \
+        --width 64 --height 48 --force_cpu
+    python -m contextgs_tpu_torch.scripts.corner_diag --n_gauss 3000 \
+        --width 128 --height 96 --force_cpu
+    python -m contextgs_tpu_torch.scripts.kern_micro --tiles 8x4 --iters 1 \
+        --force_cpu
+    python -m contextgs_tpu_torch.scripts.r3_suite --out <dir> --res 64 \
+        --cams 8 --gauss 2000 --points 300 --iters 30 --lmbdas 0.004 \
+        --force_cpu
+
+Without size flags they run at the JAX scripts' sizes on the card. The JAX
+scripts' TPU knobs (`--budget`, `--chunk`, `--budget_per_mpix`) are
+refused with the reason (`drivers.Refused`). Never put this directory on
+`sys.path`: `profile` would shadow the standard library's module.
 """
 
 from __future__ import annotations
@@ -45,3 +74,23 @@ def time_ms(fn, device: torch.device, iters: int = ITERS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, iters: int = ITERS):
+    """(kernel ms a call of `fn` by torch.profiler, the device operations a
+    call runs by name): the card's own time over `iters` calls after one
+    warm-up call, without the gaps in which it waits for the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0))
+                for e in ops) / 1e3 / iters,
+            {e.key[:60]: e.count / iters for e in ops})

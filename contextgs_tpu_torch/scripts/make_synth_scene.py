@@ -31,6 +31,7 @@ import torch
 
 from contextgs_tpu_torch.config import NO_BUDGET
 from contextgs_tpu_torch.device import resolve_device
+from contextgs_tpu_torch.drivers import Refused
 from contextgs_tpu_torch.ops.rasterize import rasterize
 from contextgs_tpu_torch.scene import colmap
 from contextgs_tpu_torch.scene.cameras import Camera
@@ -136,8 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cams", type=int, default=120)
     ap.add_argument("--gauss", type=int, default=80_000)
     ap.add_argument("--points", type=int, default=120_000)
-    ap.add_argument("--budget", type=int, default=None,
-                    help="refused: " + NO_BUDGET)
+    ap.add_argument("--budget", action=Refused, help="refused: " + NO_BUDGET)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--force_cpu", action="store_true",
                     help="render the ground truth on the CPU; without it the "
@@ -148,8 +148,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.budget is not None:
-        ap.error(f"--budget is refused: {NO_BUDGET}")
     dev = resolve_device("cpu" if args.force_cpu else None)
 
     rng = np.random.default_rng(args.seed)

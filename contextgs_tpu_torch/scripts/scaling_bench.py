@@ -31,6 +31,7 @@ from contextgs_tpu_torch.config import (NO_BUDGET, ModelConfig,
                                         OptimizationConfig, PipelineConfig,
                                         TrainConfig)
 from contextgs_tpu_torch.device import resolve_device
+from contextgs_tpu_torch.drivers import Refused
 from contextgs_tpu_torch.models import state as st
 from contextgs_tpu_torch.ops import rasterize
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
@@ -152,11 +153,8 @@ def main(argv=None) -> int:
     p.add_argument("--size", type=int, default=64)
     p.add_argument("--points", type=int, default=1200)
     p.add_argument("--iters", type=int, default=8)
-    p.add_argument("--budget", type=int, default=None,
-                   help="refused: " + NO_BUDGET)
+    p.add_argument("--budget", action=Refused, help="refused: " + NO_BUDGET)
     args = p.parse_args(argv)
-    if args.budget is not None:
-        p.error(f"--budget is refused: {NO_BUDGET}")
 
     if args.force_cpu:
         for n in (int(x) for x in args.force_cpu.split(",")):

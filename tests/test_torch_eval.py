@@ -208,8 +208,10 @@ def test_port_imports_no_jax():
             "make_synth_scene.py", "comm.py", "sharded.py",
             "sharded_loop.py", "viewer.py", "visualize.py", "codec_diag.py",
             "growth_parity.py", "scaling_bench.py", "sweep.py",
-            "rd_table.py", "collect_results.py"} <= {path.name
-                                                     for path in files}
+            "rd_table.py", "collect_results.py", "profile.py",
+            "thr_sweep.py", "fps_bench.py", "kern_micro.py",
+            "corner_diag.py", "r3_suite.py"} <= {path.name
+                                                 for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):

@@ -194,6 +194,31 @@ after every phase has held.
    scripts.sweep over λ 0.004 and 0.0005 on a 128x128, 16-view, 1k-point
    synthetic scene, 100 steps each (each run a drivers.train process on
    the card): both exit 0 with a results.json (size and PSNR printed).
+   The train driver also writes the checkpoint at the context
+   transition, chkpnt400.pt (no step changes).
+   rd_branch (rd_branch_phase, on that directory before it is removed):
+   the state the train driver saved at step 400 (kept by a wrapper of
+   train.loop.save_checkpoint) against the state train.loop.train loads
+   from chkpnt400.pt, bit for bit: every parameter, buffer and Adam
+   moment, Adam's count, the numpy and torch generators' states, the
+   camera order, and no level scales; a branch at the run's own λ in
+   process (train.loop.train with start_checkpoint, no codec) for 20
+   steps: its first loss equal to the run's step 401, its steps 401-420
+   within the largest relative spread of a second continuous run (in
+   process, steps 1-420) from the run's (K2's atomics make each run's sum
+   order its own; both printed), K1 and K2 once a step in both;
+   scripts.rd_queue --lmbdas 0.002 --iters 600 --no_wait from chkpnt400.pt
+   into <root>/l0.002 (a drivers.train process: the context steps,
+   encode, decode, the decoded test views), then scripts.rd_finalize on
+   <root> (drivers.test and scripts.codec_diag on that point,
+   scripts.rd_table, drivers.bench, each a process; the drivers run's
+   own directory lies outside the l{λ} layout, since the drivers and
+   tools phases already ran the test driver and codec_diag on it): both
+   exit 0, the summary entry rc 0 and branched from model/chkpnt400, the
+   point's results.json with "ours_from_ckpt" equal to "ours" and its
+   codec_diag.json, and rd_table a row for it. Printed: the losses'
+   distances, the table, the drivers run's PSNR and size beside the
+   point's, each part's seconds.
 6b'. raster_tools — the scripts that measure the rasterizer, after
    k2_knockouts (raster_tools_phase), each through its module-level
    measure with K1's and K2's counts set to 0 just before and read just
@@ -218,8 +243,20 @@ after every phase has held.
    entry with rc 0 and results, an rd_table row with a finite PSNR, and
    the λ skipped on a second call. Printed: each script's numbers and the
    phase's seconds.
+6b''. glue_labs — scripts.r3_micro and scripts.pack_lab on the card
+   (glue_labs_phase), their tables (each piece by CUDA events around 20
+   back-to-back calls), then every piece on the card against the same
+   piece on the CPU on the same inputs: exact for the gathers, the
+   transposes, the sorts' keys, the integer scatters, cumsums and forward
+   fill; the unstable sorts' payloads (and indices) as a multiset for
+   each key; float32 cumsums within 4·n·2^-24 of the running sum of |x|
+   and the regroups within 8·2^-24·(B+1)·max|g|; pack_lab's frame on the
+   card equal to the same frame on the CPU (demand, gauss_ids, tile
+   bounds, depth order and ranks, the lab's gradient rows) with its
+   monotone fractions, and its demand equal to the JAX package's count,
+   547,648. No hand-written kernel runs there: each piece is a torch op.
 6c. sharded — multi-GPU training (parallel/, train/sharded_loop.py),
-   after raster_tools. offset_turns, where build/prev_offset holds K1's
+   after glue_labs. offset_turns, where build/prev_offset holds K1's
    and K2's sources from before the row offset (blend_forward_nooffset.cu,
    blend_backward_nooffset.cu, from git history; k1_ptxas prints their
    registers and spills beside the new ones): the two against the new on
@@ -282,10 +319,11 @@ after every phase has held.
    K5, K6, x.transpose(1, 2).contiguous() and the lab's torch rows) against
    the slab transpose's byte bound.
 9. the `kernels` line (K1's launches: serve, train, viewer, codec,
-   make_synth_scene, drivers, bench, sharded_bands, sharded_train,
-   sharded_driver, scaling_bench and the raster_tools scripts; K2's:
-   train, drivers, bench, the sharded three, scaling_bench and the
-   raster_tools scripts but fps_bench),
+   make_synth_scene, drivers, bench, rd_branch's two in-process runs,
+   sharded_bands, sharded_train, sharded_driver, scaling_bench and the
+   raster_tools scripts; K2's: train, drivers, bench, rd_branch, the
+   sharded three, scaling_bench and the raster_tools scripts but
+   fps_bench),
    then the card line from nvidia-smi, then the result.
 """
 
@@ -1999,10 +2037,14 @@ DRIVER_TEST_VIEWS = DRIVER_VIEWS // 8      # every 8th view
 DRIVER_SCENE = ["--res", "512", "--cams", str(DRIVER_VIEWS), "--gauss",
                 "80000", "--points", "20000"]
 DRIVER_STEPS = 600
-DRIVER_SCHEDULE = ["--iterations", str(DRIVER_STEPS), "--noise_from", "200",
-                   "--context_from", "400", "--start_stat", "50",
-                   "--update_from", "100", "--update_interval", "100",
-                   "--update_until", "500", "--checkpoint_iterations",
+DRIVER_CONTEXT_FROM = 400    # the context transition, where λ points branch
+# the schedule's flags that a branched point shares with the drivers run
+DRIVER_SHARED = ["--noise_from", "200", "--context_from",
+                 str(DRIVER_CONTEXT_FROM), "--start_stat", "50",
+                 "--update_from", "100", "--update_interval", "100",
+                 "--update_until", "500"]
+DRIVER_SCHEDULE = ["--iterations", str(DRIVER_STEPS), *DRIVER_SHARED,
+                   "--checkpoint_iterations", str(DRIVER_CONTEXT_FROM),
                    str(DRIVER_STEPS)]
 DRIVER_PHASES = dict(plain=(2, 200), noise=(201, 400), context=(401, 600))
 
@@ -2056,6 +2098,9 @@ def drivers_phase(dev):
     # the bench's last iteration
     synth_k1, train_k2_in, bench_k1, bench_k2, decoded = {}, {}, {}, {}, {}
     train_k1_in = collections.deque(maxlen=1 + 2 * DRIVER_TEST_VIEWS)
+    # for rd_branch: the state the train driver saved at the context
+    # transition, and its losses over the steps a branch is compared on
+    saved, losses = {}, {}
 
     def keep_recent(fn):
         def call(*args):
@@ -2074,6 +2119,8 @@ def drivers_phase(dev):
             def cb(it, ts, metrics):
                 torch.cuda.synchronize()
                 steps.append((it, time.perf_counter()))
+                if it in BRANCH_STEPS:
+                    losses[it] = float(metrics.loss)
                 callback(it, ts, metrics)
             kept.update(cfg=cfg, scene=scene)
             kept["ts"] = fn(cfg, scene, device=device, callback=cb)
@@ -2107,6 +2154,7 @@ def drivers_phase(dev):
         zero()
         t0 = time.perf_counter()
         with wrapped(train_driver, "train", timing_train), \
+                wrapped(tloop, "save_checkpoint", keep_saved(saved)), \
                 wrapped(train_driver, "encode_scene", timing("encode")), \
                 wrapped(train_driver, "decode_scene", timing("decode")), \
                 wrapped(trz, "blend_forward", keep_recent), \
@@ -2197,6 +2245,12 @@ def drivers_phase(dev):
         t0 = time.perf_counter()
         tools_phase(root, model, train_bits, estimate_mb)
         seconds["tools"] = time.perf_counter() - t0
+        # a λ point branched from this run's transition checkpoint
+        begin("rd_branch")
+        t0 = time.perf_counter()
+        branch_k1, branch_k2 = rd_branch_phase(
+            root, model, kept["cfg"], scene, saved, losses, dev)
+        seconds["rd_branch"] = time.perf_counter() - t0
         begin("drivers")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2290,8 +2344,9 @@ def drivers_phase(dev):
     check(bench_line["value"] > 0, "bench throughput")
     return (dict(make_synth_scene=k1_synth,
                  drivers=k1_train + k1_decompress + k1_test,
-                 bench=k1_bench),
-            dict(drivers=k2_train, bench=k2_bench), decoded["PSNR"])
+                 bench=k1_bench, rd_branch=branch_k1),
+            dict(drivers=k2_train, bench=k2_bench, rd_branch=branch_k2),
+            decoded["PSNR"])
 
 
 # the sharded phase: the bands of 2 and 4 ranks; two ranks on the one card
@@ -2879,6 +2934,225 @@ def tools_phase(root, model, train_bits, estimate_mb):
           f"sweep: both runs exit 0 with a results.json ({failed})")
 
 
+# rd_branch: the queue's point, a λ other than the drivers run's, trained
+# from that run's checkpoint at the transition for 50 context steps and
+# finalised without the bench (the drivers phase ran it; the drivers run's
+# own directory is not finalised: the drivers and tools phases already ran
+# the test driver and codec_diag on it, and again they would cost about
+# 80 s); two in-process branches at the drivers run's own λ are compared
+# with the run on 20 steps, the run within BRANCH_SPREAD times the largest
+# difference of the two branches
+BRANCH_LMBDA = 0.002
+BRANCH_ITERS = DRIVER_CONTEXT_FROM + 50
+BRANCH_CHECK = 20
+BRANCH_STEPS = range(DRIVER_CONTEXT_FROM + 1,
+                     DRIVER_CONTEXT_FROM + BRANCH_CHECK + 1)
+BRANCH_SPREAD = 10
+
+
+class StopTraining(Exception):
+    """Raised by a training callback to end a run early."""
+
+
+def keep_saved(store):
+    """Wrapper of train.loop.save_checkpoint that keeps a CPU copy of the
+    state saved at the context transition (the one a branch starts
+    from)."""
+    def wrap(fn):
+        def call(path, params, buffers, adam, meta):
+            fn(path, params, buffers, adam, meta)
+            if meta["iteration"] == DRIVER_CONTEXT_FROM:
+                store.update(state_leaves(params, buffers, adam, meta))
+        return call
+    return wrap
+
+
+def state_leaves(params, buffers, adam, meta):
+    """{name: CPU copy} of a training state: every parameter, buffer and
+    Adam moment, Adam's count, both generators' states and the camera
+    order."""
+    from contextgs_tpu_torch.models import state as tst
+
+    leaves = {f"param.{k}": v for k, v in tst.param_leaves(params).items()}
+    leaves.update({f"buffer.{k}": v for k, v in buffers._asdict().items()})
+    leaves.update({f"adam.mu.{k}": v for k, v in adam.mu.items()})
+    leaves.update({f"adam.nu.{k}": v for k, v in adam.nu.items()})
+    leaves.update({"adam.count": adam.count,
+                   "numpy_generator": meta["rng_state"],
+                   "torch_generator": meta.get("generator_state"),
+                   "camera_order": list(meta["cam_order"]),
+                   "level_scales": meta["level_scales"]})
+    return {k: v.detach().cpu().clone() if torch.is_tensor(v) else v
+            for k, v in leaves.items()}
+
+
+def same_leaf(a, b):
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return (torch.is_tensor(a) and torch.is_tensor(b)
+                and a.dtype == b.dtype and torch.equal(a, b))
+    return a == b
+
+
+def losses_of(cfg, scene, dev, stop_at):
+    """{step: loss} of train.loop.train(cfg) on the card up to `stop_at`,
+    with K1's and K2's launches."""
+    from contextgs_tpu_torch.ops.rasterize import tile_kernel
+    from contextgs_tpu_torch.train import loop as tloop
+
+    out = {}
+
+    def cb(it, ts, metrics):
+        if it in BRANCH_STEPS:
+            out[it] = float(metrics.loss)
+        if it == stop_at:
+            raise StopTraining
+
+    tile_kernel.launches = tile_kernel.backward_launches = 0
+    try:
+        tloop.train(cfg, scene, device=dev, callback=cb)
+    except StopTraining:
+        pass
+    return out, tile_kernel.launches, tile_kernel.backward_launches
+
+
+def rd_branch_phase(root, model, cfg, scene, saved, losses, dev):
+    """The RD queue on the drivers run: the state loaded from its
+    checkpoint at the context transition held bit for bit to the state
+    it saved; two branches at the run's own λ in process (20 steps, no
+    codec) against the run's steps 401-420 and against each other (K2's
+    atomics and autograd's index backward sum in a varying order on the
+    card, so after the first resumed step two branches differ as the
+    branch and the run do: the run must lie within BRANCH_SPREAD times
+    the branches' largest difference); then scripts.rd_queue trains
+    λ = BRANCH_LMBDA from that checkpoint into <root>/l{λ:g} (a
+    drivers.train process: the context steps, encode, decode, the decoded
+    test views) and scripts.rd_finalize runs the test driver and
+    codec_diag on it, then rd_table.
+    Returns K1's and K2's launches (the in-process runs; the children's
+    are theirs)."""
+    import dataclasses
+
+    from contextgs_tpu_torch.scripts import rd_finalize, rd_queue, rd_table
+    from contextgs_tpu_torch.train import loop as tloop
+
+    seconds = {}
+    base = os.path.join(model, f"chkpnt{DRIVER_CONTEXT_FROM}.pt")
+    stop = DRIVER_CONTEXT_FROM + BRANCH_CHECK
+    branch_cfg = dataclasses.replace(
+        cfg, model_path="", save_iterations=(), checkpoint_iterations=(),
+        test_iterations=(), start_checkpoint=base)
+    restored = {}
+
+    def keep_loaded(fn):          # a copy: training updates it in place
+        def call(*args):
+            out = fn(*args)
+            restored.update(state_leaves(*out))
+            return out
+        return call
+
+    t0 = time.perf_counter()
+    with wrapped(tloop, "load_checkpoint", keep_loaded):
+        branched, k1_b, k2_b = losses_of(branch_cfg, scene, dev, stop)
+    seconds["branch_in_process"] = time.perf_counter() - t0
+    differ = sorted(k for k in saved if not same_leaf(saved[k],
+                                                      restored.get(k)))
+    t0 = time.perf_counter()
+    again, k1_c, k2_c = losses_of(branch_cfg, scene, dev, stop)
+    seconds["second_branch"] = time.perf_counter() - t0
+
+    def rel(a, b):
+        return {it: abs(a[it] - b[it]) / abs(b[it]) for it in BRANCH_STEPS}
+
+    branch_off = rel(branched, losses)
+    spread = rel(again, branched)
+    first = BRANCH_STEPS[0]
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        queue_rc = rd_queue.main([
+            "--out", root, "--base", base,
+            "--lmbdas", f"{BRANCH_LMBDA:g}", "--iters", str(BRANCH_ITERS),
+            "--voxel_size", f"{cfg.model.voxel_size:g}",
+            "--checkpoint_iterations", str(BRANCH_ITERS), "--no_wait",
+            "--extra_flags", " ".join(DRIVER_SHARED)])
+    seconds["rd_queue"] = time.perf_counter() - t0
+    with open(os.path.join(root, "summary.jsonl")) as f:
+        entries = [json.loads(x) for x in f if x.strip()]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        finalize_rc = rd_finalize.main(["--out", root, "--no_bench"])
+    seconds["rd_finalize"] = time.perf_counter() - t0
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        rd_table.main(["--out", root])
+    rows = [ln for ln in table.getvalue().splitlines()[2:]
+            if ln.startswith("| ")]
+    run = os.path.join(root, f"l{BRANCH_LMBDA:g}")
+    res = {}
+    if os.path.exists(os.path.join(run, "results.json")):
+        with open(os.path.join(run, "results.json")) as f:
+            res = {k: dict(PSNR=v["PSNR"], size_MB=v["size_MB"])
+                   for k, v in json.load(f).items()}
+    with open(os.path.join(model, "results.json")) as f:
+        run_ours = json.load(f)["ours"]
+    with open(os.path.join(root, "rd_finalize.log")) as f:
+        finalize_steps = [ln.strip() for ln in f if ln.startswith("=== ")]
+    emit(phase="rd_branch", base=os.path.relpath(base, root),
+         state_leaves=len(saved), state_differs=differ,
+         first_step=dict(branch=branched.get(first),
+                         second_branch=again.get(first),
+                         run=losses.get(first)),
+         branch_rel_off=branch_off, two_branches_rel_spread=spread,
+         second_branch_rel_off=rel(again, losses),
+         max_branch_off=max(branch_off.values()),
+         max_spread=max(spread.values()), spread_factor=BRANCH_SPREAD,
+         launches=dict(branch_k1=k1_b, branch_k2=k2_b, second_k1=k1_c,
+                       second_k2=k2_c),
+         queue_rc=queue_rc, summary=[{k: e.get(k) for k in (
+             "lmbda", "iters", "rc", "branched_from")} for e in entries],
+         finalize_rc=finalize_rc, finalize_steps=finalize_steps,
+         rd_table=table.getvalue().splitlines(), results=res,
+         codec_diag=os.path.exists(os.path.join(run, "codec_diag.json")),
+         drivers_run={k: run_ours[k] for k in ("PSNR", "size_MB")},
+         seconds=seconds)
+    check(len(saved) > 0 and not differ,
+          f"the state loaded from {os.path.basename(base)} equals the "
+          f"state the drivers run saved ({differ})")
+    check(saved["level_scales"] is None,
+          "no level scales in the checkpoint at the transition")
+    check(sorted(branched) == sorted(again) == sorted(losses)
+          == list(BRANCH_STEPS), "the losses of steps 401-420 of each run")
+    check(branched[first] == again[first] == losses[first],
+          "the first resumed step's loss equals the continuous run's")
+    check(max(branch_off.values())
+          <= BRANCH_SPREAD * max(spread.values()),
+          f"the branch within {BRANCH_SPREAD} times the spread of two "
+          "branches")
+    check(k1_b == k2_b == k1_c == k2_c == BRANCH_CHECK,
+          "K1 and K2 once a step in the in-process branches")
+    check(queue_rc == 0 and len(entries) == 1
+          and entries[0]["rc"] == 0
+          and entries[0]["branched_from"]
+          == f"model/chkpnt{DRIVER_CONTEXT_FROM}",
+          "rd_queue: the point trained, its entry branched from the base")
+    point = f"l{BRANCH_LMBDA:g}"
+    check(finalize_rc == 0 and [ln.split()[1] for ln in finalize_steps]
+          == ["test", "codec_diag", "rd_table", "finalize"]
+          and all(ln.split()[2] == point for ln in finalize_steps[:2]),
+          "rd_finalize: the test driver and codec_diag on the point, "
+          "rd_table, each exiting 0")
+    check(set(res) == {"ours", "ours_from_ckpt"}
+          and all(math.isfinite(v["PSNR"]) for v in res.values())
+          and res["ours_from_ckpt"] == res["ours"],
+          "the point's results.json: ours_from_ckpt = ours")
+    check(os.path.exists(os.path.join(run, "codec_diag.json")),
+          "the point's codec_diag.json")
+    check(len(rows) == len(entries)
+          and f"| {BRANCH_LMBDA:g} | {BRANCH_ITERS} | " in rows[0],
+          "rd_table: a row for each point of the queue")
+    return k1_b + k1_c, k2_b + k2_c
+
+
 # the sweep of the tools phase: a small synthetic scene, two λ, a short
 # three-phase schedule with one densify (about 1.4k anchors: the codec's
 # host CDF build, not the steps, sets a run's time)
@@ -3198,6 +3472,122 @@ def raster_tools_phase(dev, root):
     emit(phase="raster_tools_done", seconds=time.perf_counter() - t_phase,
          launches=launches)
     return launches
+
+
+# glue_labs: the demand of pack_lab's frame, the bench frame, as the JAX
+# package counts it (the bench frame of thr_sweep and profile)
+PACK_LAB_DEMAND = 547_648
+
+
+def sorted_pairs(keys, payload):
+    """(key, payload) pairs in lexicographic order, on the host: an
+    unstable sort's output as the multiset of payloads of each key."""
+    keys, payload = keys.cpu().numpy(), payload.cpu().numpy()
+    i = np.lexsort((payload, keys))
+    return keys[i], payload[i]
+
+
+def lab_agree(name, card, cpu, inputs):
+    """(held, the largest difference) of a lab piece's card output against
+    its CPU output: exact for gathers, transposes, integer scatters and
+    cumsums and the sorts' keys; the sorts' payloads (and a sort's
+    indices) as a multiset for each key; a float32 cumsum within
+    `r3_micro.cumsum_tolerance` at each output, a regroup within
+    `pack_lab.regroup_tolerance` at each gaussian (each 8·2^-24 times the
+    rounding scale of the scan or the segment sum: about 0.06 at the end of
+    the cumsum's 786,432 rows, at most about 0.0065 on the bench frame's
+    regroup)."""
+    from contextgs_tpu_torch.scripts import pack_lab, r3_micro
+
+    if isinstance(card, tuple):           # (sorted keys, payload or index)
+        keys_equal = torch.equal(card[0].cpu(), cpu[0])
+        a, b = sorted_pairs(*card), sorted_pairs(*cpu)
+        return (keys_equal and all(np.array_equal(x, y)
+                                   for x, y in zip(a, b))), None
+    card = card.cpu()
+    if card.dtype != cpu.dtype or card.shape != cpu.shape:
+        return False, None
+    if not card.is_floating_point() or not ("cumsum" in name
+                                            or "regroup" in name):
+        return torch.equal(card, cpu), None
+    err = (card.double() - cpu.double()).abs()
+    xs = [x.cpu() for x in inputs]
+    if "regroup" in name:
+        bound = pack_lab.regroup_tolerance(xs[0], xs[1], card.shape[0])
+    else:
+        bound = r3_micro.cumsum_tolerance(xs[0], 0)
+    return bool((err <= bound).all()), float(err.max())
+
+
+def hold_pieces(pieces):
+    """{piece: {"held", "max_abs"}} of each (name, fn, inputs) on the card
+    against the same piece on the CPU, on the same inputs."""
+    out = {}
+    for name, fn, xs in pieces:
+        with torch.no_grad():
+            card = fn(*xs)
+            cpu = fn(*[x.cpu() for x in xs])
+        held, err = lab_agree(name, card, cpu, xs)
+        out[name] = dict(held=held, max_abs=err)
+        del card, cpu
+    return out
+
+
+def glue_labs_phase(dev):
+    """scripts.r3_micro and scripts.pack_lab on the card (their tables,
+    each piece timed by CUDA events), every piece held against the same
+    piece on the CPU on the same inputs, pack_lab's frame on the card
+    against the same frame on the CPU (instances, depth order and ranks,
+    monotone fractions exactly) and its demand against the JAX package's
+    count."""
+    from contextgs_tpu_torch.scripts import pack_lab, r3_micro
+
+    t_phase = time.perf_counter()
+    tables = {}
+    for lab, run in (("r3_micro", lambda: r3_micro.measure(dev)),
+                     ("pack_lab", lambda: pack_lab.measure(dev))):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            res = run()
+        tables[lab] = res
+        emit(phase="glue_labs", lab=lab, table=out.getvalue().splitlines())
+        torch.cuda.empty_cache()
+    micro = hold_pieces(r3_micro.pieces(dev))
+    torch.cuda.empty_cache()
+    card = pack_lab.frame(dev)
+    cpu = pack_lab.frame("cpu")
+    frame_equal = dict(
+        demand=card.inst.demand == cpu.inst.demand,
+        gauss_ids=torch.equal(card.inst.gauss_ids.cpu(),
+                              cpu.inst.gauss_ids),
+        tile_bounds=torch.equal(card.inst.tile_bounds.cpu(),
+                                cpu.inst.tile_bounds),
+        order=torch.equal(card.order.cpu(), cpu.order),
+        rank=torch.equal(card.rank.cpu(), cpu.rank),
+        grads=torch.equal(card.grads.cpu(), cpu.grads))
+    mono = pack_lab.monotone_fraction
+    monotone = dict(gauss_ids=(mono(card.inst.gauss_ids),
+                               mono(cpu.inst.gauss_ids)),
+                    depth_rank=(mono(card.rank), mono(cpu.rank)))
+    rows_off = float((card.rows.cpu() - cpu.rows).abs().max())
+    packed = hold_pieces(pack_lab.pieces(card))
+    del card, cpu
+    emit(phase="glue_labs", check="card against the CPU",
+         r3_micro=micro, pack_lab=packed, frame_equal=frame_equal,
+         monotone=monotone, rows_max_abs_card_cpu=rows_off,
+         demand=tables["pack_lab"]["demand"],
+         jax_demand=PACK_LAB_DEMAND, b_pad=tables["pack_lab"]["b_pad"],
+         seconds=time.perf_counter() - t_phase)
+    for name, res in {**micro, **packed}.items():
+        check(res["held"], f"glue_labs: {name} on the card = on the CPU")
+    check(len(micro) == 19 and len(packed) == 9, "glue_labs: every piece")
+    check(all(frame_equal.values()), f"pack_lab frame: {frame_equal}")
+    check(all(a == b for a, b in monotone.values()),
+          "pack_lab: the monotone fractions")
+    check(tables["pack_lab"]["demand"] == PACK_LAB_DEMAND,
+          "pack_lab: the demand is the JAX package's count")
+    check(all(ms > 0 for t in (tables["r3_micro"], tables["pack_lab"]["ms"])
+              for ms in t.values()), "glue_labs: every piece timed")
 
 
 def main() -> int:
@@ -3738,6 +4128,10 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     raster_k1 = {k: v[0] for k, v in raster_launches.items()}
     raster_k2 = {k: v[1] for k, v in raster_launches.items() if v[1]}
+
+    # ---- 6b''. the glue labs: r3_micro and pack_lab ----
+    begin("glue_labs")
+    glue_labs_phase(dev)
 
     # ---- 6c. sharded: bands, two ranks on the card, NCCL at one ----
     begin("sharded")

@@ -33,31 +33,14 @@ import argparse
 import json
 import os
 import signal
-import subprocess
 import sys
 import time
 
 from contextgs_tpu_torch.device import resolve_device
+from contextgs_tpu_torch.scripts import raise_interrupt, run_logged
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
 SCENE_MAKER = ["-m", "contextgs_tpu_torch.scripts.make_synth_scene"]
 TRAINER = ["-m", "contextgs_tpu_torch.drivers.train"]
-
-
-def sh(cmd: list, log_path: str) -> int:
-    """Run `cmd` from the repository's root, its output appended to
-    `log_path`; → its exit code."""
-    print(f"+ {' '.join(cmd)}", flush=True)
-    with open(log_path, "a") as f:
-        f.write(f"\n+ {' '.join(cmd)}\n")
-        f.flush()
-        return subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT,
-                              cwd=REPO).returncode
-
-
-def _term(signum, frame):
-    raise KeyboardInterrupt(f"signal {signum}")
 
 
 def run_lambda(lm: float, args, scene: str, suite_log: str,
@@ -69,10 +52,11 @@ def run_lambda(lm: float, args, scene: str, suite_log: str,
     t0 = time.time()
     rc = None
     try:
-        rc = sh([sys.executable, *TRAINER, "-s", scene, "-m", run_dir,
-                 "--iterations", str(args.iters), "--lmbda", f"{lm:g}",
-                 "--voxel_size", str(args.voxel_size), "--no_tensorboard"]
-                + args.extra_flags.split() + device_flags, suite_log)
+        rc = run_logged(
+            [sys.executable, *TRAINER, "-s", scene, "-m", run_dir,
+             "--iterations", str(args.iters), "--lmbda", f"{lm:g}",
+             "--voxel_size", str(args.voxel_size), "--no_tensorboard"]
+            + args.extra_flags.split() + device_flags, suite_log)
     finally:
         wall = time.time() - t0
         entry = dict(lmbda=lm, iters=args.iters, wall_s=round(wall, 1),
@@ -117,15 +101,16 @@ def main(argv=None) -> int:
     summary = os.path.join(args.out, "summary.jsonl")
 
     if not os.path.exists(os.path.join(scene, "sparse/0/points3D.bin")):
-        rc = sh([sys.executable, *SCENE_MAKER, "--out", scene,
-                 "--res", str(args.res), "--cams", str(args.cams),
-                 "--gauss", str(args.gauss), "--points", str(args.points)]
-                + device_flags, suite_log)
+        rc = run_logged(
+            [sys.executable, *SCENE_MAKER, "--out", scene,
+             "--res", str(args.res), "--cams", str(args.cams),
+             "--gauss", str(args.gauss), "--points", str(args.points)]
+            + device_flags, suite_log)
         if rc != 0:
             print("scene generation FAILED", flush=True)
             return 1
 
-    previous = signal.signal(signal.SIGTERM, _term)
+    previous = signal.signal(signal.SIGTERM, raise_interrupt)
     try:
         for lm in [float(x) for x in args.lmbdas.split(",")]:
             if os.path.exists(os.path.join(args.out, f"l{lm:g}",

@@ -210,8 +210,9 @@ def test_port_imports_no_jax():
             "growth_parity.py", "scaling_bench.py", "sweep.py",
             "rd_table.py", "collect_results.py", "profile.py",
             "thr_sweep.py", "fps_bench.py", "kern_micro.py",
-            "corner_diag.py", "r3_suite.py"} <= {path.name
-                                                 for path in files}
+            "corner_diag.py", "r3_suite.py", "rd_queue.py",
+            "rd_finalize.py", "chip_session.py", "r3_micro.py",
+            "pack_lab.py"} <= {path.name for path in files}
     for path in files:
         for mod in _imported_modules(path):
             for banned in ("jax", "contextgs_tpu"):

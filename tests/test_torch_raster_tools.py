@@ -41,8 +41,10 @@ from contextgs_tpu_torch import convert
 from contextgs_tpu_torch.drivers import bench
 from contextgs_tpu_torch.evaluation import make_decoded_renderer
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
-from contextgs_tpu_torch.scripts import (corner_diag, fps_bench, kern_micro,
-                                         kvariants, profile, r3_suite,
+from contextgs_tpu_torch.scripts import (chip_session, corner_diag,
+                                         fps_bench, kern_micro, kvariants,
+                                         pack_lab, profile, r3_micro,
+                                         r3_suite, rd_finalize, rd_queue,
                                          rd_table, thr_sweep)
 
 torch.set_num_threads(1)
@@ -475,17 +477,25 @@ MAINS = {
     "corner_diag": (corner_diag, ["--n_gauss", "50", "--width", "32",
                                   "--height", "32"]),
     "r3_suite": (r3_suite, ["--lmbdas", "0.004", "--iters", "1"]),
+    "rd_queue": (rd_queue, ["--lmbdas", "0.002", "--iters", "1",
+                            "--no_wait"]),
+    "rd_finalize": (rd_finalize, []),
+    "chip_session": (chip_session, []),
+    "r3_micro": (r3_micro, ["--iters", "1"]),
+    "pack_lab": (pack_lab, ["--iters", "1"]),
 }
+# the launchers write under --out: they must raise before they make it
+WITH_OUT = ("r3_suite", "rd_queue", "rd_finalize", "chip_session")
 
 
 @pytest.mark.parametrize("name", sorted(MAINS))
 def test_scripts_raise_without_a_card(name, monkeypatch, tmp_path):
     """Without --force_cpu and without a card each script raises before it
-    does any work (r3_suite before it makes a directory)."""
+    does any work (the launchers before they make a directory)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     module, argv = MAINS[name]
     out = tmp_path / "out"
-    if name == "r3_suite":
+    if name in WITH_OUT:
         argv = [*argv, "--out", str(out)]
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         module.main(argv)
@@ -496,7 +506,7 @@ def test_scripts_raise_without_a_card(name, monkeypatch, tmp_path):
     ("profile", "--budget"), ("profile", "--chunk"),
     ("thr_sweep", "--budget_per_mpix"), ("fps_bench", "--budget"),
     ("kern_micro", "--budget"), ("kern_micro", "--chunk"),
-    ("corner_diag", "--budget")])
+    ("corner_diag", "--budget"), ("rd_queue", "--train_vis_cap")])
 def test_scripts_refuse_tpu_knobs(name, flag, capsys):
     """The JAX scripts' TPU knobs fail the parse, with the reason."""
     module, argv = MAINS[name]

@@ -1,0 +1,8 @@
+"""Kernels launched a unit (a training step or a view), counted in the
+profiler's trace of the traced window (copies and fills left out)."""
+
+
+def read(r):
+    if not r.device_ops or not r.units:
+        return None
+    return len(r.kernels()) / r.units

@@ -1252,12 +1252,10 @@ def train_small_cpu_vs_card(dev):
     return losses["cpu"], losses[str(dev)]
 
 
-def profile_train_steps(ts, cfg, scene, dev, step_ms, phase, n=3):
+def profile_train_steps(ts, cfg, scene, dev, phase, n=3):
     """torch.profiler over n steps of `phase` from the trained state (one
-    warm-up step first): kernel time per step, the busiest kernels and host
-    operators, and the device's busy share: kernel time per step over
-    `step_ms`, the phase's unprofiled median step (the profiler slows the
-    host)."""
+    warm-up step first): kernel time per step and the busiest kernels and
+    host operators."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1303,7 +1301,6 @@ def profile_train_steps(ts, cfg, scene, dev, step_ms, phase, n=3):
     return dict(train_phase=phase, steps=n, profiled_wall_ms_per_step=wall_ms,
                 kernel_ms_per_step=device_ms,
                 kernels_per_step=sum(e.count for e in kernels) / n,
-                device_busy_share=device_ms / step_ms,
                 top_kernels=top(kernels, device_us, 10),
                 top_host_self=top(events, lambda e: e.self_cpu_time_total, 8))
 
@@ -3996,7 +3993,7 @@ def main() -> int:
     check(len(densified) == 6, "densify ran at steps 20 to 70")
     for ph in ("noise", "context"):
         emit(phase="train_profile", **profile_train_steps(
-            ts, tcfg, scene, dev, split[ph]["step_ms_median"], ph))
+            ts, tcfg, scene, dev, ph))
 
     # the context phase's eval render of the final state, twice; the size
     begin("context_eval")

@@ -44,6 +44,7 @@ from contextgs_tpu_torch.models.levels import (build_level_maps,
 from contextgs_tpu_torch.models.mlps import count_mlp_params
 from contextgs_tpu_torch.models.quant import (ANCHOR_ROUND_DIGITS,
                                               CLAMP_STEPS, Q_ANCHOR)
+from contextgs_tpu_torch.utils import trace
 from contextgs_tpu_torch.utils.checkpoint import load_pytree, save_pytree
 
 CHUNK = 1000          # anchors per entropy-coding chunk (ref MAX_batch_size)
@@ -224,8 +225,11 @@ def _decode_stream(data, side, mean, scale, q, w: int):
     if n == 0:
         return np.zeros(0, np.float32)
     base = _window_base(mean, q, w)
-    win = coder.decode(_cdf_rows(mean, scale, q, base, w)[1],
-                       data).astype(np.int64)
+    trace.count("symbols", n)
+    with trace.span("codec/cdf"):
+        rows = _cdf_rows(mean, scale, q, base, w)[1]
+    with trace.span("codec/coder"):
+        win = coder.decode(rows, data).astype(np.int64)
     rel = win
     esc = (win == 0) | (win == w - 1)
     n_esc = int(esc.sum())
@@ -245,8 +249,9 @@ def _decode_stream(data, side, mean, scale, q, w: int):
 def _ep_host(ep, idx: torch.Tensor) -> dict:
     """EntropyParams gathered at the device rows `idx` → host float32 numpy
     by field name."""
-    return {name: x.index_select(0, idx).cpu().numpy()
-            for name, x in ep._asdict().items()}
+    rows = {name: x.index_select(0, idx) for name, x in ep._asdict().items()}
+    with trace.sync("codec.params", len(rows)):
+        return {name: x.cpu().numpy() for name, x in rows.items()}
 
 
 def _chunk_params(eph: dict, sl: slice, cfg: ModelConfig) -> dict:
@@ -451,42 +456,49 @@ def decode_scene(out_dir: str, cfg: ModelConfig, device=None) -> DecodedScene:
     `device` (default: the CUDA card). Raises where a stream is not
     consumed in full or a level's anchor count differs from the encoder's."""
     dev = resolve_device(device)
+    with trace.span("codec/decode_scene"):
+        return _decode_scene(out_dir, cfg, dev)
+
+
+def _decode_scene(out_dir: str, cfg: ModelConfig, dev) -> DecodedScene:
     t0 = time.time()
-    with open(os.path.join(out_dir, "meta.pkl"), "rb") as f:
-        meta = pickle.load(f)
-    n = meta["n"]
-    mlps, prior = load_pytree(os.path.join(out_dir, "mlp.pkl"), cfg, dev)
+    with trace.span("codec/load"):
+        with open(os.path.join(out_dir, "meta.pkl"), "rb") as f:
+            meta = pickle.load(f)
+        n = meta["n"]
+        mlps, prior = load_pytree(os.path.join(out_dir, "mlp.pkl"), cfg, dev)
+        codes = np.load(os.path.join(out_dir, "anchor.npy"))
+        anchor_np = _dequantize_anchor_np(codes, meta["bound_min"],
+                                          meta["bound_max"])
 
-    codes = np.load(os.path.join(out_dir, "anchor.npy"))
-    anchor_np = _dequantize_anchor_np(codes, meta["bound_min"],
-                                      meta["bound_max"])
+    with trace.span("codec/hyper"):
+        h_lo, h_hi = meta["hyper_range"]
+        hyper_rows = _hyper_rows(prior, h_lo, h_hi)
+        with open(os.path.join(out_dir, "hyper.b"), "rb") as f:
+            hyper_all = f.read()
+        hyper_sym = np.zeros((n, cfg.hyper_dim), np.int32)
+        pos = 0
+        for c, ln in enumerate(meta["hyper_lens"]):
+            hyper_sym[:, c] = coder.decode_shared(
+                hyper_rows[c], n, hyper_all[pos:pos + ln]) + h_lo
+            pos += ln
+        if pos != len(hyper_all):
+            raise ValueError("hyper stream not fully consumed")
+        hyper = hyper_sym.astype(np.float32)
 
-    # hyper
-    h_lo, h_hi = meta["hyper_range"]
-    hyper_rows = _hyper_rows(prior, h_lo, h_hi)
-    with open(os.path.join(out_dir, "hyper.b"), "rb") as f:
-        hyper_all = f.read()
-    hyper_sym = np.zeros((n, cfg.hyper_dim), np.int32)
-    pos = 0
-    for c, ln in enumerate(meta["hyper_lens"]):
-        hyper_sym[:, c] = coder.decode_shared(
-            hyper_rows[c], n, hyper_all[pos:pos + ln]) + h_lo
-        pos += ln
-    if pos != len(hyper_all):
-        raise ValueError("hyper stream not fully consumed")
-    hyper = hyper_sym.astype(np.float32)
-
-    # masks
-    with open(os.path.join(out_dir, "masks.b"), "rb") as f:
-        masks = coder.decode_shared(_mask_row(meta["prob_masks"]),
-                                    n * cfg.n_offsets, f.read())
-    masks = masks.reshape(n, cfg.n_offsets).astype(np.float32)
+    with trace.span("codec/masks"):
+        with open(os.path.join(out_dir, "masks.b"), "rb") as f:
+            masks = coder.decode_shared(_mask_row(meta["prob_masks"]),
+                                        n * cfg.n_offsets, f.read())
+        masks = masks.reshape(n, cfg.n_offsets).astype(np.float32)
 
     # levels on the decoded anchors: the encoder's computation
-    maps, anchor_q, hyper_ctx, feat_state, scaling_state = _context(
-        anchor_np, hyper, meta["disable_hyper"], meta["level_scales"],
-        meta["voxel_size"], cfg, dev)
-    level = _host(maps.level)
+    with trace.span("codec/context"):
+        maps, anchor_q, hyper_ctx, feat_state, scaling_state = _context(
+            anchor_np, hyper, meta["disable_hyper"], meta["level_scales"],
+            meta["voxel_size"], cfg, dev)
+        with trace.sync("codec.level"):
+            level = _host(maps.level)
     predictor = make_level_predictor(cfg)
     out = dict(feat=np.zeros((n, cfg.feat_dim), np.float32),
                scaling=np.zeros((n, 6), np.float32),
@@ -498,10 +510,11 @@ def decode_scene(out_dir: str, cfg: ModelConfig, device=None) -> DecodedScene:
         if len(idx) != entry["count"]:
             raise ValueError(f"level {li}: {len(idx)} anchors against the "
                              f"encoder's {entry['count']}")
-        idx_t = torch.from_numpy(idx).to(dev)
-        eph = _ep_host(predictor(mlps, li, anchor_q, feat_state,
-                                 scaling_state, maps.parent, hyper_ctx),
-                       idx_t)
+        with trace.span("codec/predict"):
+            idx_t = torch.from_numpy(idx).to(dev)
+            eph = _ep_host(predictor(mlps, li, anchor_q, feat_state,
+                                     scaling_state, maps.parent, hyper_ctx),
+                           idx_t)
         data, pos = {}, {}
         for name in STREAMS:
             with open(os.path.join(out_dir, f"{name}{li}.b"), "rb") as f:

@@ -12,7 +12,9 @@ The flags are the JAX driver's. Refused, with the reason: `--budget` and
 `--gui` serves live renders to a SIBR remote viewer on `--ip`:`--port`
 (`utils/viewer.py`; `viewer_render` draws each frame through K1 in the
 phase training is in). `--profile_steps` writes a `torch.profiler` trace
-under `<model_path>/profile`; `--detect_anomaly` turns on
+under `<model_path>/profile` and, beside it, `spans.json`: the program's
+spans (`utils/trace.py`) by name, each with its count, ms and self ms a
+step, and its counters a step; `--detect_anomaly` turns on
 `torch.autograd.set_detect_anomaly`.
 
 `--mesh N` trains on N ranks (`train/sharded_loop.train_sharded`): one
@@ -52,6 +54,7 @@ from contextgs_tpu_torch.models.renderer import render
 from contextgs_tpu_torch.scene.ply_io import read_ply
 from contextgs_tpu_torch.train.loop import TrainerState, phase_of, train
 from contextgs_tpu_torch.train.sharded_loop import train_sharded
+from contextgs_tpu_torch.utils import trace
 from contextgs_tpu_torch.utils.tboard import SummaryWriter
 from contextgs_tpu_torch.utils.viewer import ViewerServer
 
@@ -200,7 +203,9 @@ def config_from_args(args) -> TrainConfig:
 def profiler(cfg: TrainConfig, n: int, dev: torch.device, log):
     """A torch.profiler over steps [start, start + n) of a run, stepped from
     the training callback and written as a Chrome trace under
-    `<model_path>/profile`; a null context without `n` or a model_path."""
+    `<model_path>/profile`, with the program's spans of those steps
+    summarised in `spans.json` beside it; a null context without `n` or a
+    model_path."""
     if not n or not cfg.model_path:
         return contextlib.nullcontext()
     start = 20 if cfg.opt.iterations > 25 else 1
@@ -213,6 +218,9 @@ def profiler(cfg: TrainConfig, n: int, dev: torch.device, log):
     def write(prof):
         os.makedirs(os.path.dirname(path), exist_ok=True)
         prof.export_chrome_trace(path)
+        with open(os.path.join(os.path.dirname(path), "spans.json"),
+                  "w") as f:
+            json.dump(trace.summary(trace.take(), "train/step"), f, indent=1)
         log.info("profiler trace written to %s", path)
 
     acts = [torch.profiler.ProfilerActivity.CPU]

@@ -26,7 +26,7 @@ from contextgs_tpu_torch.ops import rasterize as rz
 from contextgs_tpu_torch.ops.lpips import (load_weights as load_lpips_weights,
                                            lpips as lpips_fn)
 from contextgs_tpu_torch.ops.ssim import psnr as psnr_fn, ssim as ssim_fn
-from contextgs_tpu_torch.utils import png
+from contextgs_tpu_torch.utils import png, trace
 
 LPIPS_SKIPPED = ("no VGG weights: set CONTEXTGS_LPIPS_WEIGHTS to an exported "
                  ".npz (see ops/lpips.py)")
@@ -56,23 +56,29 @@ def make_decoded_renderer(dec: DecodedScene, cfg: TrainConfig, width: int,
 
     @torch.no_grad()
     def render(cam: dict, bg) -> torch.Tensor:
-        cam = camera_tensors(cam, dev)
-        vis = rz.visible_filter(anchor, scaling[:, :3], cam["world_view"],
-                                cam["full_proj"], cam["tanfovx"],
-                                cam["tanfovy"], width, height)
-        idx = torch.nonzero(vis).squeeze(1)
-        ng = decode_neural_gaussians(
-            params, None, mcfg, cam["camera_center"], vis[idx],
-            feat=feat[idx], grid_scaling=scaling[idx],
-            grid_offsets=offsets[idx].reshape(-1, K, 3), anchor=anchor[idx],
-            binary_mask=masks[idx])
-        out = rz.rasterize(ng.xyz, ng.scaling, ng.rot, ng.color, ng.opacity,
-                           world_view=cam["world_view"],
-                           full_proj=cam["full_proj"],
-                           tanfovx=cam["tanfovx"], tanfovy=cam["tanfovy"],
-                           width=width, height=height, bg=put(bg),
-                           valid=ng.gauss_valid)
-        return out.image
+        with trace.span("serve/view"):
+            cam = camera_tensors(cam, dev)
+            with trace.span("render/cull"):
+                vis = rz.visible_filter(anchor, scaling[:, :3],
+                                        cam["world_view"], cam["full_proj"],
+                                        cam["tanfovx"], cam["tanfovy"],
+                                        width, height)
+            with trace.sync("view.visible"):
+                idx = torch.nonzero(vis).squeeze(1)
+            with trace.span("render/decode"):
+                ng = decode_neural_gaussians(
+                    params, None, mcfg, cam["camera_center"], vis[idx],
+                    feat=feat[idx], grid_scaling=scaling[idx],
+                    grid_offsets=offsets[idx].reshape(-1, K, 3),
+                    anchor=anchor[idx], binary_mask=masks[idx])
+            out = rz.rasterize(ng.xyz, ng.scaling, ng.rot, ng.color,
+                               ng.opacity, world_view=cam["world_view"],
+                               full_proj=cam["full_proj"],
+                               tanfovx=cam["tanfovx"],
+                               tanfovy=cam["tanfovy"], width=width,
+                               height=height, bg=put(bg),
+                               valid=ng.gauss_valid)
+            return out.image
 
     render.device = dev
     return render

@@ -36,6 +36,7 @@ from contextgs_tpu_torch.models.entropy import (binary_grid_size_bits,
 from contextgs_tpu_torch.models.levels import LevelMaps
 from contextgs_tpu_torch.models.mlps import apply_grid
 from contextgs_tpu_torch.models.quant import ste_multistep
+from contextgs_tpu_torch.utils import trace
 
 
 class EntropyParams(NamedTuple):
@@ -184,7 +185,9 @@ def multi_scale_generate(params: st.Params, buffers: st.Buffers,
     grid_scaling = st.get_scaling(params)
 
     for i in reversed(range(cfg.level_num)):
-        rows = torch.nonzero((maps.level == i) & buffers.alive).squeeze(1)
+        with trace.sync("context.level"):
+            rows = torch.nonzero((maps.level == i)
+                                 & buffers.alive).squeeze(1)
 
         def own(x):
             return torch.index_select(x, 0, rows)

@@ -19,6 +19,7 @@ from contextgs_tpu_torch.models.levels import LevelMaps
 from contextgs_tpu_torch.models.mlps import (apply_color, apply_cov,
                                              apply_feature_bank, apply_opacity)
 from contextgs_tpu_torch.models.quant import uniform_noise_quant
+from contextgs_tpu_torch.utils import trace
 
 
 class NeuralGaussians(NamedTuple):
@@ -153,17 +154,19 @@ def phase_inputs(
             # looked up on the module, so that a test can hand in its draws
             draws = context.context_draws(generator, n, cfg, training,
                                           anchor_q.device)
-        ctx = context.multi_scale_generate(params, buffers, cfg, maps,
-                                           anchor_q, draws, training,
-                                           disable_hyper=opt.disable_hyper)
+        with trace.span("context/quantize"):
+            ctx = context.multi_scale_generate(
+                params, buffers, cfg, maps, anchor_q, draws, training,
+                disable_hyper=opt.disable_hyper)
         feat, grid_scaling, grid_offsets = (ctx.feat_q, ctx.scaling_q,
                                             ctx.offsets_q)
         rate = None
         if training:
-            rate = context.estimate_rate(
-                params, buffers, cfg, ctx, st.get_mask(params),
-                st.get_mask_anchor(params, buffers.alive), draws.rate,
-                sample_frac=opt.rate_sample_frac)
+            with trace.span("context/rate"):
+                rate = context.estimate_rate(
+                    params, buffers, cfg, ctx, st.get_mask(params),
+                    st.get_mask_anchor(params, buffers.alive), draws.rate,
+                    sample_frac=opt.rate_sample_frac)
         aux = DecodeAux(rate=rate, context=ctx)
     return PhaseInputs(anchor_q, feat, grid_scaling, grid_offsets, aux)
 

@@ -24,6 +24,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from contextgs_tpu_torch.utils import trace
+
 _SENTINEL = 2 ** 30        # the voxel key of invalid slots
 
 
@@ -85,8 +87,9 @@ def build_level_maps(anchors: torch.Tensor, alive: torch.Tensor,
     for i in range(1, level_num):
         # a float32 tensor, not a Python scalar: CUDA divides by a host scalar
         # as a product with its reciprocal, which may round otherwise
-        scale = torch.tensor(voxel_size * float(level_scales[i - 1]),
-                             dtype=torch.float32, device=dev)
+        with trace.sync("levels.scale"):
+            scale = torch.tensor(voxel_size * float(level_scales[i - 1]),
+                                 dtype=torch.float32, device=dev)
         pos = torch.where(member[:, None], anchors, 0.0)
         keys = torch.round(pos / scale).to(torch.int32)
         is_rep, rep = _voxel_unique_representative(keys, member)

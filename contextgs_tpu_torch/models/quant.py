@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from contextgs_tpu_torch.utils import trace
+
 ANCHOR_ROUND_DIGITS = 16
 Q_ANCHOR = 1.0 / (2 ** ANCHOR_ROUND_DIGITS - 1)
 CLAMP_STEPS = 15_000  # the ±15000·Q clamp window of ste_multistep
@@ -61,8 +63,10 @@ def quantize_anchor(anchors: torch.Tensor, min_v: torch.Tensor,
     Returns (dequantized anchors, integer codes). Every constant is a float32
     tensor, so the op order and rounding are those of the reference."""
     f32 = dict(dtype=torch.float32, device=anchors.device)
-    interval = (max_v - min_v) * torch.tensor(Q_ANCHOR, **f32) \
-        + torch.tensor(1e-6, **f32)
+    with trace.sync("quant.consts", 2):
+        q_anchor = torch.tensor(Q_ANCHOR, **f32)
+        eps = torch.tensor(1e-6, **f32)
+    interval = (max_v - min_v) * q_anchor + eps
     codes = torch.clamp(torch.floor((anchors - min_v) / interval),
                         0, 2 ** ANCHOR_ROUND_DIGITS - 1)
     deq = codes * interval + min_v

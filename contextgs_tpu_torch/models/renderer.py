@@ -24,6 +24,7 @@ from contextgs_tpu_torch.models.decode import (DecodeAux, NeuralGaussians,
                                                generate_neural_gaussians)
 from contextgs_tpu_torch.models.levels import LevelMaps
 from contextgs_tpu_torch.ops import rasterize as rz
+from contextgs_tpu_torch.utils import trace
 
 
 class RenderOutput(NamedTuple):
@@ -42,8 +43,12 @@ class RenderOutput(NamedTuple):
 def camera_tensors(cam: dict, device) -> dict:
     """Camera dict (numpy or tensors) → float32 tensors on `device`; the two
     tan(fov/2) stay Python floats."""
-    out = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
-           for k, v in cam.items() if k not in ("tanfovx", "tanfovy")}
+    fields = {k: v for k, v in cam.items() if k not in ("tanfovx", "tanfovy")}
+    # a host array's copy to the card waits for it
+    with trace.sync("camera", sum(not isinstance(v, torch.Tensor)
+                                  for v in fields.values())):
+        out = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+               for k, v in fields.items()}
     out["tanfovx"] = float(cam["tanfovx"])
     out["tanfovy"] = float(cam["tanfovy"])
     return out
@@ -85,16 +90,20 @@ def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
     dev = params.anchor.device
     cam = camera_tensors(cam, dev)
     if visible_mask is None:
-        visible_mask = prefilter_voxel(params, buffers, cam, width, height)
+        with trace.span("render/cull"):
+            visible_mask = prefilter_voxel(params, buffers, cam, width,
+                                           height)
     k = cfg.n_offsets
     nk = params.offsets.shape[0] * k
-    index = torch.nonzero(visible_mask).squeeze(1)
+    with trace.sync("render.visible"):
+        index = torch.nonzero(visible_mask).squeeze(1)
     slots = (index[:, None] * k + torch.arange(k, device=dev)).reshape(-1)
 
-    ng, aux = generate_neural_gaussians(
-        params, buffers, cfg, opt, cam["camera_center"], visible_mask,
-        generator, phase=phase, training=training, anchor_index=index,
-        maps=maps)
+    with trace.span("render/decode"):
+        ng, aux = generate_neural_gaussians(
+            params, buffers, cfg, opt, cam["camera_center"], visible_mask,
+            generator, phase=phase, training=training, anchor_index=index,
+            maps=maps)
     if screen_dummy is not None:
         screen_dummy = screen_dummy[slots]
 

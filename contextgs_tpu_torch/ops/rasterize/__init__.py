@@ -28,6 +28,7 @@ from contextgs_tpu_torch.ops.rasterize.sorting import (TileInstances,
 from contextgs_tpu_torch.ops.rasterize.tile_kernel import (TILE,
                                                            blend_backward,
                                                            blend_forward)
+from contextgs_tpu_torch.utils import trace
 
 __all__ = ["rasterize", "visible_filter", "project_gaussians",
            "expand_and_sort", "splat_rows", "RasterOutput",
@@ -71,9 +72,10 @@ class _TileBlend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_rgb, d_final_t):
         width, height, t_eps, row_offset = ctx.dims
-        d_rows = blend_backward(*ctx.saved_tensors, d_rgb.contiguous(),
-                                d_final_t.contiguous(), width, height, t_eps,
-                                row_offset)
+        with trace.span("raster/blend_backward"):
+            d_rows = blend_backward(*ctx.saved_tensors, d_rgb.contiguous(),
+                                    d_final_t.contiguous(), width, height,
+                                    t_eps, row_offset)
         return d_rows, None, None, None, None, None, None
 
 
@@ -111,18 +113,25 @@ def rasterize(
     row0 = 0 if tile_band is None else tile_band[0]
     band_rows = tiles_y if tile_band is None else tile_band[1]
     band_h = height if tile_band is None else band_rows * TILE
-    proj = project_gaussians(means3d, scales, quats, world_view, full_proj,
-                             tanfovx, tanfovy, width, height, TILE,
-                             scale_modifier, valid=valid, opacities=opacities,
-                             tile_band=tile_band)
-    if screen_dummy is not None:
-        ndc_scale = torch.tensor([0.5 * width, 0.5 * height],
-                                 dtype=means3d.dtype, device=means3d.device)
-        proj = proj._replace(means2d=proj.means2d + screen_dummy * ndc_scale)
-    inst = expand_and_sort(proj, tiles_x, band_rows, row0)
-    img, final_t = _TileBlend.apply(
-        splat_rows(proj, colors, opacities), inst.gauss_ids, inst.tile_bounds,
-        width, band_h, T_EPS if t_eps is None else t_eps, row0)
+    with trace.span("raster/project"):
+        proj = project_gaussians(means3d, scales, quats, world_view,
+                                 full_proj, tanfovx, tanfovy, width, height,
+                                 TILE, scale_modifier, valid=valid,
+                                 opacities=opacities, tile_band=tile_band)
+        if screen_dummy is not None:
+            with trace.sync("raster.ndc_scale"):
+                ndc_scale = torch.tensor([0.5 * width, 0.5 * height],
+                                         dtype=means3d.dtype,
+                                         device=means3d.device)
+            proj = proj._replace(
+                means2d=proj.means2d + screen_dummy * ndc_scale)
+    with trace.span("raster/bin"):
+        inst = expand_and_sort(proj, tiles_x, band_rows, row0)
+    with trace.span("raster/blend"):
+        img, final_t = _TileBlend.apply(
+            splat_rows(proj, colors, opacities), inst.gauss_ids,
+            inst.tile_bounds, width, band_h,
+            T_EPS if t_eps is None else t_eps, row0)
     image = img + final_t[None] * bg[:, None, None]
     return RasterOutput(image=image, final_t=final_t, radii=proj.radii,
                         visibility=proj.radii > 0, overflowed=False,

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from contextgs_tpu_torch.ops.rasterize.projection import ProjectedGaussians
+from contextgs_tpu_torch.utils import trace
 
 
 class TileInstances(NamedTuple):
@@ -45,7 +46,8 @@ def expand_and_sort(proj: ProjectedGaussians, tiles_x: int, tiles_y: int,
     order = torch.sort(dkey, stable=True).indices              # depth rank → g
     counts = counts_g[order]
     incl = torch.cumsum(counts, 0)
-    demand = int(incl[-1]) if incl.numel() else 0
+    with trace.sync("sort.demand"):
+        demand = int(incl[-1]) if incl.numel() else 0
     offsets = incl - counts                                    # exclusive
 
     rank = torch.repeat_interleave(
@@ -62,7 +64,9 @@ def expand_and_sort(proj: ProjectedGaussians, tiles_x: int, tiles_y: int,
 
     tile_sorted, perm = torch.sort(tile, stable=True)
     gauss_ids = g[perm].to(torch.int32)
-    seg_len = torch.bincount(tile_sorted, minlength=n_tiles)
+    # CUDA's bincount reads the input's least and greatest value back
+    with trace.sync("sort.bins", 2):
+        seg_len = torch.bincount(tile_sorted, minlength=n_tiles)
     tile_bounds = torch.zeros(n_tiles + 1, dtype=torch.int32, device=dev)
     tile_bounds[1:] = torch.cumsum(seg_len, 0)
     return TileInstances(gauss_ids=gauss_ids, tile_bounds=tile_bounds,

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from contextgs_tpu_torch.utils import trace
+
 
 def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
     x = np.arange(window_size, dtype=np.float32) - window_size // 2
@@ -69,8 +71,9 @@ def _filter2d(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
          sigma: float = 1.5) -> torch.Tensor:
     """Mean SSIM over [C,H,W] images in [0,1]."""
-    w = torch.as_tensor(_gaussian_window(window_size, sigma),
-                        dtype=img1.dtype, device=img1.device)
+    with trace.sync("ssim.window"):
+        w = torch.as_tensor(_gaussian_window(window_size, sigma),
+                            dtype=img1.dtype, device=img1.device)
     mu1 = _filter2d(img1, w)
     mu2 = _filter2d(img2, w)
     mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2

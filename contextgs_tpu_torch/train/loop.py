@@ -39,6 +39,7 @@ from contextgs_tpu_torch.scene.snapshot import save_model_ply, save_networks
 from contextgs_tpu_torch.train.optim import AdamState, init_adam
 from contextgs_tpu_torch.train.step import (kept_level_maps, make_eval_render,
                                             make_train_step)
+from contextgs_tpu_torch.utils import trace
 from contextgs_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                   save_checkpoint)
 
@@ -230,9 +231,11 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
             log.info("iter %d test [%s]: PSNR %.3f over %d views", it, phase,
                      float(np.mean(psnrs)), len(psnrs))
         if it % cfg.log_every == 0:
+            with trace.sync("log", 4):
+                logged = (float(metrics.loss), float(metrics.psnr),
+                          float(metrics.bit_per_param), st.n_alive(model))
             log.info("iter %d [%s]: loss=%.5f psnr=%.2f bpp=%.4f anchors=%d",
-                     it, phase, float(metrics.loss), float(metrics.psnr),
-                     float(metrics.bit_per_param), st.n_alive(model))
+                     it, phase, *logged)
         if phase == "context" and it % 2000 == 0:
             log.info("iter %d size estimate: %s", it,
                      estimate_bits(model, cfg, ts))

@@ -23,6 +23,7 @@ from contextgs_tpu_torch.models.renderer import render
 from contextgs_tpu_torch.models.state import ANCHOR_FIELDS, Buffers, Params
 from contextgs_tpu_torch.ops.ssim import l1_loss, psnr, ssim
 from contextgs_tpu_torch.train.optim import AdamState, adam_update
+from contextgs_tpu_torch.utils import trace
 
 PHASES = ("plain", "noise", "context")
 
@@ -87,55 +88,70 @@ def make_train_step(cfg: TrainConfig, width: int, height: int, phase: str,
     def step(params: Params, buffers: Buffers, adam: AdamState, cam: dict,
              gt_image: torch.Tensor, bg: torch.Tensor, it: int,
              with_stats: bool, generator: torch.Generator | None = None):
+        with trace.span("train/step"):
+            return _step(params, buffers, adam, cam, gt_image, bg, it,
+                         with_stats, generator)
+
+    def _step(params, buffers, adam, cam, gt_image, bg, it, with_stats,
+              generator):
         maps = None
         if phase == "context":
-            maps = kept_level_maps(params, buffers, mcfg, voxel_size,
-                                   level_scales)
+            with trace.span("train/levels"):
+                maps = kept_level_maps(params, buffers, mcfg, voxel_size,
+                                       level_scales)
         p, leaves = _grad_leaves(params)
         nk = params.offsets.shape[0] * mcfg.n_offsets
         screen_dummy = torch.zeros((nk, 2), dtype=torch.float32,
                                    device=params.anchor.device,
                                    requires_grad=True)
 
-        out = render(p, buffers, mcfg, opt, pipe, cam, width, height, bg,
-                     generator, phase=phase, training=True, maps=maps,
-                     screen_dummy=screen_dummy)
-        l1 = l1_loss(out.image, gt_image)
-        ssim_v = ssim(out.image, gt_image)
-        gv = out.gaussians.gauss_valid
-        # three products, not torch.prod: the undecoded slots are zero, and
-        # prod's backward then takes a cumprod over all N·K rows
-        sc = out.gaussians.scaling
-        prod3 = sc[:, 0] * sc[:, 1] * sc[:, 2]
-        scaling_reg = (torch.where(gv, prod3, 0.0).sum()
-                       / torch.clamp(gv.sum(), min=1))
-        loss = (opt.lmbda_rec * ((1.0 - opt.lambda_dssim) * l1
-                                 + opt.lambda_dssim * (1.0 - ssim_v))
-                + opt.scaling_reg_weight * scaling_reg)
-        bpp = torch.zeros((), device=loss.device)
-        if phase == "context":
-            bpp = out.aux.rate.bit_per_param
-            alive = buffers.alive
-            mask_mean = ((torch.sigmoid(p.mask_logit) * alive[:, None]).sum()
-                         / torch.clamp(alive.sum() * mcfg.n_offsets, min=1))
-            loss = loss + opt.lmbda * bpp + opt.mask_reg_weight * mask_mean
+        with trace.span("train/render"):
+            out = render(p, buffers, mcfg, opt, pipe, cam, width, height, bg,
+                         generator, phase=phase, training=True, maps=maps,
+                         screen_dummy=screen_dummy)
+        with trace.span("train/loss"):
+            l1 = l1_loss(out.image, gt_image)
+            ssim_v = ssim(out.image, gt_image)
+            gv = out.gaussians.gauss_valid
+            # three products, not torch.prod: the undecoded slots are zero,
+            # and prod's backward then takes a cumprod over all N·K rows
+            sc = out.gaussians.scaling
+            prod3 = sc[:, 0] * sc[:, 1] * sc[:, 2]
+            scaling_reg = (torch.where(gv, prod3, 0.0).sum()
+                           / torch.clamp(gv.sum(), min=1))
+            loss = (opt.lmbda_rec * ((1.0 - opt.lambda_dssim) * l1
+                                     + opt.lambda_dssim * (1.0 - ssim_v))
+                    + opt.scaling_reg_weight * scaling_reg)
+            bpp = torch.zeros((), device=loss.device)
+            if phase == "context":
+                bpp = out.aux.rate.bit_per_param
+                alive = buffers.alive
+                mask_mean = ((torch.sigmoid(p.mask_logit)
+                              * alive[:, None]).sum()
+                             / torch.clamp(alive.sum() * mcfg.n_offsets,
+                                           min=1))
+                loss = (loss + opt.lmbda * bpp
+                        + opt.mask_reg_weight * mask_mean)
 
         names = list(leaves)
-        grads = torch.autograd.grad(loss, [leaves[n] for n in names]
-                                    + [screen_dummy], allow_unused=True)
+        with trace.span("train/backward"):
+            grads = torch.autograd.grad(loss, [leaves[n] for n in names]
+                                        + [screen_dummy], allow_unused=True)
         screen_grad = grads[-1]
         grads = {n: g for n, g in zip(names, grads[:-1]) if g is not None}
 
         if with_stats:
             g = out.gaussians
-            buffers = densify.accumulate_stats(
-                buffers, g.neural_opacity.detach(), g.gauss_valid,
-                out.visibility, g.anchor_visible,
-                torch.zeros_like(screen_dummy) if screen_grad is None
-                else screen_grad, mcfg.n_offsets)
+            with trace.span("train/stats"):
+                buffers = densify.accumulate_stats(
+                    buffers, g.neural_opacity.detach(), g.gauss_valid,
+                    out.visibility, g.anchor_visible,
+                    torch.zeros_like(screen_dummy) if screen_grad is None
+                    else screen_grad, mcfg.n_offsets)
 
-        params, adam = adam_update(params, grads, adam, opt, it,
-                                   spatial_lr_scale)
+        with trace.span("train/adam"):
+            params, adam = adam_update(params, grads, adam, opt, it,
+                                       spatial_lr_scale)
         with torch.no_grad():
             metrics = StepMetrics(
                 loss=loss.detach(), l1=l1.detach(),

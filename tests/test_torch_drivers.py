@@ -184,7 +184,8 @@ def test_snapshot_is_the_final_state(trained):
 
 def test_warmup_profile_and_anomaly_flags(scene, tmp_path):
     """--warmup reboots a second run from the PLY snapshot's anchors;
-    --profile_steps writes a torch.profiler trace; --detect_anomaly runs."""
+    --profile_steps writes a torch.profiler trace and the program's spans
+    of the profiled steps beside it; --detect_anomaly runs."""
     model = tmp_path / "w"
     assert train_driver.main([
         "-s", str(scene), "-m", str(model), "--iterations", "4",
@@ -203,6 +204,11 @@ def test_warmup_profile_and_anomaly_flags(scene, tmp_path):
     assert inits[1] == len(tst.voxelize_points(pts, voxel))
     trace = json.loads((model / "profile" / "trace.json").read_text())
     assert trace["traceEvents"]
+    # the program's spans of the two profiled steps, a step each
+    spans = json.loads((model / "profile" / "spans.json").read_text())
+    assert spans["root"] == "train/step" and spans["units"] == 2
+    assert spans["spans"]["train/step"]["count"] == 1
+    assert spans["spans"]["train/render"]["count"] == 1
     assert not torch.is_anomaly_enabled()
 
 

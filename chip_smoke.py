@@ -148,8 +148,16 @@ after every phase has held.
    Checked, exactly: every decoded state (anchor, feat, scaling, offsets,
    masks, hyper, level) equal to the encoder's, every stream consumed, the
    second encode byte-identical, K1 launched once a view and within 2e-4
-   (mean 1e-6) of its plain version on each decoded view. Printed only:
-   bytes per stream against the model's estimate, anchors per level,
+   (mean 1e-6) of its plain version on each decoded view. The CDF kernel
+   (compression/csrc/cdf_rows.cu; its count set to 0 before the phase's
+   host check and read after the second encode): once for each card
+   `_cdf_rows` call, and on every call of the first encode (the real
+   streams' μ, σ, Q, window bases and windows) its uint16 rows equal to
+   the plain version's (codec._windowed_cdf_rows + coder.quantize_cdf) and
+   its float64 rows bit for bit (cdf_rows_check: 0 entries may differ);
+   the kernel's device time over those calls by CUDA events, the plain
+   version's by the host clock, beside their byte and FP64 bound. Printed
+   only: bytes per stream against the model's estimate, anchors per level,
    windows and escapes, encode and decode seconds, ms per view beside the
    serve cell's, PSNR and SSIM, peak device memory.
 6b. drivers — the port's drivers from disk, in a temporary directory
@@ -323,7 +331,8 @@ after every phase has held.
    sharded_bands, sharded_train, sharded_driver, scaling_bench and the
    raster_tools scripts; K2's: train, drivers, bench, rd_branch, the
    sharded three, scaling_bench and the raster_tools scripts but
-   fps_bench),
+   fps_bench; the CDF kernel's: the host check, codec, cdf_check and
+   drivers, the last for every driver and tool script of phase 6b),
    then the card line from nvidia-smi, then the result.
 """
 
@@ -353,6 +362,7 @@ PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
 # capability 9.0 (CUDA C++ Programming Guide, arithmetic instruction
 # throughput), 132 SMs at the 1.98 GHz boost clock
 SFU_EXP_PER_S = 132 * 16 * 1.98e9
+PEAK_FP64_FLOPS = 33.5e12    # H100 SXM, float64 outside the tensor cores
 # float32 operations K1 spends on a (pixel, instance) pair, by how far the
 # pair gets in the kernel's loop (csrc/blend_forward.cu), keyed as the plain
 # version's pair counts: every pair walked takes dx, dy and power (11); one
@@ -1911,6 +1921,94 @@ def streams_add_up(out_dir, meta):
                     for lv in meta["levels"] for s in STREAMS))
 
 
+def cdf_rows_ops(mean, scale, q, base, w):
+    """The float64 operations the CDF kernel spends on these rows, counted
+    from its source (csrc/cdf_rows.cu) by the branch each entry takes: a
+    product, sum, quotient or comparison-free clip as one, a fused
+    multiply-add as two (the quotient's Newton steps as one, so the bound is
+    low). Every entry takes the quantization's product; an inner entry its
+    edge and z (5); its ndtr, where evaluated, the scaling by sqrt(1/2)
+    (1) and then erf's branch (22), or erfc's: -a·a, e·p, the quotient and
+    the halving (4), 1 - y where z > 0, glibc's exp (20, 21 below -512),
+    the first pair of polynomials (31) or the second (21); the underflow
+    takes -a·a and the halving (2) and 1 - y where z > 0."""
+    sig = np.maximum(scale, np.float32(1e-9)).astype(np.float64)
+    edges = (base[:, None] + (np.arange(1, w) - 0.5)[None, :]) * q[
+        :, None].astype(np.float64)
+    z = (edges - mean[:, None]) / sig[:, None]
+    a = np.abs(z) * math.sqrt(0.5)
+    live = np.abs(z) < 6 if w > 128 else np.ones(z.shape, bool)
+    erf = live & (a < 1)
+    erfc = live & (a >= 1)
+    under = erfc & (a * a > 709.78)
+    ex = erfc & ~under
+    pos = int((erfc & (z > 0)).sum())
+    return (mean.size * (w + 1) + 5 * z.size + int(live.sum())
+            + 22 * int(erf.sum()) + 4 * int(ex.sum()) + 2 * int(under.sum())
+            + pos + 20 * int(ex.sum()) + int((ex & (a * a >= 512)).sum())
+            + 31 * int((ex & (a < 8)).sum()) + 21 * int((ex & (a >= 8)).sum()))
+
+
+def cdf_rows_check(calls, dev):
+    """The CDF kernel on the given `_cdf_rows` calls' inputs (μ, σ, Q, base,
+    w): its uint16 rows against the plain version's, entry for entry, and
+    its float64 rows bit for bit; the kernel's device time (CUDA events
+    around each launch, summed), the wrapper's whole call (copies both ways,
+    by the host clock) and the plain version's (host clock), each over all
+    the calls, the launches timed after the card has spun long enough for
+    the host to enqueue them all; and the bound of the kernel's work,
+    uint16 rows only: 20
+    bytes read and 2 (w + 1) written a row at the HBM rate, the float64
+    operations (cdf_rows_ops) at the FP64 rate."""
+    from contextgs_tpu_torch.compression import cdf_rows, codec, coder
+
+    res = dict(calls=len(calls), symbols=0, entries=0, u16_differ=0,
+               f64_differ=0, windows=dict(collections.Counter(
+                   c[4] for c in calls)))
+    plain_s = wrapper_s = 0.0
+    n_bytes = n_ops = 0
+    staged = []
+    for mean, scale, q, base, w in calls:
+        n = mean.size
+        res["symbols"] += n
+        res["entries"] += n * (w + 1)
+        f, u = cdf_rows.cdf_rows(mean, scale, q, base, w, dev,
+                                 float_rows=True)
+        t0 = time.perf_counter()
+        want_f = codec._windowed_cdf_rows(mean, scale, q, base, w)
+        want_u = coder.quantize_cdf(want_f)
+        plain_s += time.perf_counter() - t0
+        res["u16_differ"] += int((u != want_u).sum())
+        res["f64_differ"] += int((f.view(np.int64)
+                                  != want_f.view(np.int64)).sum())
+        t0 = time.perf_counter()
+        cdf_rows.cdf_rows(mean, scale, q, base, w, dev)
+        wrapper_s += time.perf_counter() - t0
+        n_bytes += n * (20 + 2 * (w + 1))
+        n_ops += cdf_rows_ops(mean, scale, q, base, w)
+        staged.append((torch.from_numpy(np.concatenate([
+            np.ascontiguousarray(x).view(np.uint8)
+            for x in (base, mean, scale, q)])).to(dev), n, w))
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in staged]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 26)    # ~34 ms, for the host to enqueue them all
+    for (inputs, n, w), (e0, e1) in zip(staged, events):
+        e0.record()
+        cdf_rows.build_on_card(inputs, n, w)
+        e1.record()
+    torch.cuda.synchronize()
+    bytes_ms = n_bytes / PEAK_HBM_BYTES * 1e3
+    fp64_ms = n_ops / PEAK_FP64_FLOPS * 1e3
+    res.update(ms=sum(e0.elapsed_time(e1) for e0, e1 in events),
+               wrapper_ms=wrapper_s * 1e3, plain_ms=plain_s * 1e3,
+               bytes=n_bytes, fp64_ops=n_ops, bytes_ms=bytes_ms,
+               fp64_ms=fp64_ms, bound_ms=max(bytes_ms, fp64_ms),
+               bound_by="bytes" if bytes_ms >= fp64_ms else "fp64")
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+
 def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
     """The codec on the train cell's final model at full width:
     encode_scene → files → decode_scene → make_decoded_renderer →
@@ -1921,10 +2019,13 @@ def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
     the rest: bytes per stream against the model's estimate, anchors per
     level, windows and escapes, encode and decode seconds, ms per view
     beside the serve cell's, PSNR and SSIM against the context eval render
-    of the same cameras, peak device memory. Returns K1's launches."""
+    of the same cameras, peak device memory. The CDF kernel: launched once
+    a card `_cdf_rows` call, and held to the plain version on the first
+    encode's calls (cdf_rows_check). Returns K1's launches and the CDF
+    kernel's result with its launches by path."""
     import pickle
 
-    from contextgs_tpu_torch.compression import codec
+    from contextgs_tpu_torch.compression import cdf_rows, codec
     from contextgs_tpu_torch.evaluation import (evaluate_images,
                                                 make_decoded_renderer,
                                                 render_set)
@@ -1936,16 +2037,36 @@ def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
     opts = dict(disable_hyper=tcfg.opt.disable_hyper)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    cdf_rows.launches = 0
+    codec._check_card(dev)        # the host check, once a process
+    cdf_launches = dict(host_check=cdf_rows.launches)
+    cdf_calls, encode_calls = [], []
+
+    def counting(record):
+        def wrap(fn):
+            def call(*a, **kw):
+                device = a[5] if len(a) > 5 else kw.get("device")
+                cdf_calls.append(torch.device(device or "cpu").type)
+                if record:      # μ, σ, Q, base, w
+                    encode_calls.append(a[:5])
+                return fn(*a, **kw)
+            return call
+        return wrap
+
     root = tempfile.mkdtemp(prefix="contextgs_codec_")
     try:
         first, second = (os.path.join(root, n) for n in ("a", "b"))
         stats = {}
         t0 = time.perf_counter()
-        bits, states = codec.encode_scene(*args, first, return_states=True,
-                                          stream_stats=stats, **opts)
+        with wrapped(codec, "_cdf_rows", counting(True)):
+            bits, states = codec.encode_scene(*args, first,
+                                              return_states=True,
+                                              stream_stats=stats, **opts)
         encode_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        dec = codec.decode_scene(first, mcfg)   # raises on an unread stream
+        with wrapped(codec, "_cdf_rows", counting(False)):
+            # raises on an unread stream
+            dec = codec.decode_scene(first, mcfg)
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         equal = {k: bool(np.array_equal(getattr(dec, k).cpu().numpy(),
@@ -1958,12 +2079,26 @@ def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
         files = {n: os.path.getsize(os.path.join(first, n))
                  for n in sorted(os.listdir(first))}
         t0 = time.perf_counter()
-        codec.encode_scene(*args, second, **opts)
+        with wrapped(codec, "_cdf_rows", counting(False)):
+            codec.encode_scene(*args, second, **opts)
         encode2_s = time.perf_counter() - t0
         identical = same_files(first, second)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del states
+    cdf_launches["codec"] = cdf_rows.launches - cdf_launches["host_check"]
+    cdf_rows.launches = 0
+    cdf_res = cdf_rows_check(encode_calls, dev)
+    cdf_launches["cdf_check"] = cdf_rows.launches
+    del encode_calls
+    emit(phase="cdf_rows_check", **cdf_res, launches=cdf_launches,
+         card_calls=len(cdf_calls))
+    check(cdf_launches["codec"] == len(cdf_calls)
+          and set(cdf_calls) == {"cuda"},
+          "one CDF kernel launch a card _cdf_rows call of the codec")
+    check(cdf_res["u16_differ"] == 0 and cdf_res["f64_differ"] == 0,
+          "the CDF kernel's rows equal the plain version's on the encode's "
+          "streams")
 
     cams = scene.train_cameras
     bg = np.zeros(3, np.float32)
@@ -2024,7 +2159,7 @@ def codec_phase(ts, tcfg, scene, eval_render, size_mb, serve_ms, dev):
           "K1 launches on the decoded orbit != views")
     check(k1_res["finite"] and k1_res["max_abs"] <= 2e-4
           and k1_res["mean_abs"] <= 1e-6, "K1 on the decoded views")
-    return k1_launches
+    return k1_launches, dict(cdf_res, launches_by_path=cdf_launches)
 
 # the drivers phase: the synthetic scene (512x512, ModelConfig widths) at a
 # size whose initial anchors come to about 20k, cut so that the codec's host
@@ -4023,14 +4158,19 @@ def main() -> int:
 
     # ---- 6. the codec: encode the trained model, decode, serve (K1) ----
     begin("codec")
-    codec_k1 = codec_phase(ts, tcfg, scene, run, size_mb, serve_ms, dev)
+    codec_k1, cdf = codec_phase(ts, tcfg, scene, run, size_mb, serve_ms, dev)
     single = dict(losses=losses, densify=densified,
                   anchors_final=int(ts.model.buffers.alive.sum()))
     del ts, dec, log
 
     # ---- 6b. the drivers from disk, and the rasterizer bench ----
     begin("drivers")
+    from contextgs_tpu_torch.compression import cdf_rows
+    cdf_rows.launches = 0
     drivers_k1, drivers_k2, drivers_psnr = drivers_phase(dev)
+    cdf["launches_by_path"]["drivers"] = cdf_rows.launches
+    check(cdf_rows.launches > 0, "the drivers' codec built its CDF rows on "
+          "the card")
     begin("k1_k2_bounds")
 
     kept = k2_kept["args"]
@@ -4231,6 +4371,21 @@ def main() -> int:
              packed_grad_ms=k3_times["packed_grad"]["k3_ms"],
              packed_grad_k3_prev_ms=k3_times["packed_grad"].get(
                  "k3_prev_ms"))]
+    kernels.append(dict(
+        name="cdf_rows", route="cuda",
+        source="contextgs_tpu_torch/compression/csrc/cdf_rows.cu",
+        replaces=None,
+        replaces_host=("contextgs_tpu/compression/codec.py::"
+                       "_windowed_cdf_rows + compression/coder.py::"
+                       "quantize_cdf"),
+        launches=sum(cdf["launches_by_path"].values()),
+        launches_by_path=cdf["launches_by_path"],
+        max_abs_err=0.0, u16_differ=cdf["u16_differ"], f64_differ=cdf["f64_differ"],
+        ms=cdf["ms"], plain_ms=cdf["plain_ms"], bound_ms=cdf["bound_ms"],
+        bound_by="bytes" if cdf["bound_by"] == "bytes" else "operations",
+        bound_term=cdf["bound_by"], library_ms=None,
+        wrapper_ms=cdf["wrapper_ms"], calls=cdf["calls"],
+        symbols=cdf["symbols"], shape="the first codec encode's calls"))
     kernels += lab_kernels
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

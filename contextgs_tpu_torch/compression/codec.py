@@ -14,11 +14,20 @@ Determinism: the level maps (`levels.build_level_maps`) and the per-level
 the same n rows on both sides. The reference pads its rows to a power of two
 for XLA's compile cache only (pad rows join no level and are never coded);
 torch has no such cache, so neither side pads. μ, σ and Q reach the host as
-float32 (`_ep_host`) and the CDF rows are built from them in host float64
-with scipy's `ndtr` by one function (`_cdf_rows`) for both sides, so
-encode∘decode is lossless and the autoregressive chain bit-identical on one
-device. Decoding the other package's files needs the same μ, σ and Q to the
-bit.
+float32 (`_ep_host`) and the CDF rows are built from them by one function
+(`_cdf_rows`) for both sides, so encode∘decode is lossless and the
+autoregressive chain bit-identical on one device. Decoding the other
+package's files needs the same μ, σ and Q to the bit.
+
+`_cdf_rows` builds the rows where the codec's device is: in host float64
+with scipy's `ndtr` (the plain version, `_windowed_cdf_rows` and
+`coder.quantize_cdf`) on the CPU, and by the CUDA kernel of
+`compression/cdf_rows.py` on a CUDA device, which gives the plain version's
+rows bit for bit. So a file encoded on either decodes on the other. The
+kernel copies the host's ndtr as scipy computes it with glibc's exp on
+x86-64 (FMA build); before its first build in a process `_check_card`
+holds it to this host's rows and raises where they differ, so a host that
+computes ndtr otherwise cannot use the card's path.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import numpy as np
 import torch
 from scipy.special import ndtr
 
-from contextgs_tpu_torch.compression import coder
+from contextgs_tpu_torch.compression import cdf_rows, coder
 from contextgs_tpu_torch.config import ModelConfig
 from contextgs_tpu_torch.device import resolve_device
 from contextgs_tpu_torch.models import state as st
@@ -145,14 +154,64 @@ def _windowed_cdf_rows(mean: np.ndarray, scale: np.ndarray, q: np.ndarray,
     return np.clip(c, 0.0, 1.0)
 
 
-def _cdf_rows(mean, scale, q, base, w: int) -> tuple:
-    """(float64 rows, the uint16 rows that the encoder and the decoder both
-    code with)."""
+def _probe_rows(w: int) -> tuple:
+    """(μ, σ, Q, window base) of 256 fixed elements at window w whose rows
+    take each branch of the CDF kernel's ndtr: erf's (|z| < √2), erfc's two
+    polynomials (|z| < 8√2 and beyond), its underflow (|z| > 37.7) and, for
+    w > 128, the cut at |z| = 6. σ runs from 1e-12, under the floor, to
+    1e3."""
+    i = np.arange(256)
+    mean = (0.37 * (i % 7) - 1.1).astype(np.float32)
+    scale = np.logspace(-12, 3, i.size).astype(np.float32)
+    q = (0.5 + 0.25 * (i % 5)).astype(np.float32)
+    return mean, scale, q, _window_base(mean, q, w)
+
+
+_card_checked = False
+
+
+def _check_card(device) -> None:
+    """Raise unless the CUDA kernel builds this host's plain rows, float64
+    and uint16 bit for bit, on the probe rows (`_probe_rows`) at w = 64 and
+    256, one of each of its two designs; once a process, before its first
+    build for the codec. The kernel copies scipy's ndtr with glibc's exp as
+    x86-64's FMA build computes it; on a host whose libm or scipy computes
+    otherwise, a file encoded on the card would decode wrongly, with no
+    error, on the host."""
+    global _card_checked
+    if _card_checked:
+        return
+    for w in (MIN_WINDOW, 4 * MIN_WINDOW):
+        mean, scale, q, base = _probe_rows(w)
+        got = cdf_rows.cdf_rows(mean, scale, q, base, w, device,
+                                float_rows=True)
+        fcdf = _windowed_cdf_rows(mean, scale, q, base, w)
+        rows = coder.quantize_cdf(fcdf)
+        if not (np.array_equal(got[0].view(np.int64), fcdf.view(np.int64))
+                and np.array_equal(got[1], rows)):
+            raise RuntimeError(
+                f"the CDF kernel's rows differ from this host's at w = {w}: "
+                "its ndtr copies glibc's exp (x86-64, FMA) and scipy's "
+                "Cephes ndtr, which this host does not compute alike")
+    _card_checked = True
+
+
+def _cdf_rows(mean, scale, q, base, w: int, device=None,
+              float_rows: bool = False) -> tuple:
+    """(float64 rows where `float_rows` asks for them, else None; the uint16
+    rows that the encoder and the decoder both code with), built on
+    `device`: the kernel on a CUDA device (it launches or raises, after
+    `_check_card`), the plain version on the host otherwise."""
+    if device is not None and torch.device(device).type == "cuda":
+        _check_card(device)
+        out = cdf_rows.cdf_rows(mean, scale, q, base, w, device, float_rows)
+        trace.count("cdf_card_symbols", mean.shape[0])
+        return out
     fcdf = _windowed_cdf_rows(mean, scale, q, base, w)
-    return fcdf, coder.quantize_cdf(fcdf)
+    return (fcdf if float_rows else None), coder.quantize_cdf(fcdf)
 
 
-def _code_stream(x, mean, scale, q, stats=None):
+def _code_stream(x, mean, scale, q, stats=None, device=None):
     """Encode one flat stream → (bytes, window, escape bytes, dequantized).
 
     Symbols are clamped to ±15000·Q (ref encodings.py:203-216); the chunk's
@@ -164,7 +223,8 @@ def _code_stream(x, mean, scale, q, stats=None):
     When `stats` (a dict) is passed, accumulates the per-chunk bit-cost
     decomposition used to audit actual-vs-estimate: ideal gaussian
     cross-entropy of the coded symbols, float-windowed-CDF cost,
-    quantized-uint16-CDF cost, payload bytes, escape count/bytes."""
+    quantized-uint16-CDF cost, payload bytes, escape count/bytes. The rows
+    are built on `device` (`_cdf_rows`)."""
     if x.size == 0:
         return b"", MIN_WINDOW, b"", x.astype(np.float32)
     x = np.clip(x, -CLAMP_STEPS * q, CLAMP_STEPS * q)
@@ -189,7 +249,8 @@ def _code_stream(x, mean, scale, q, stats=None):
     side = esc_rel.astype(np.int16 if use16 else np.int32).tobytes()
     deq = ((base + rel).astype(np.float32) * q.astype(np.float32))
     t0 = time.perf_counter()
-    fcdf, rows = _cdf_rows(mean, scale, q, base, w)
+    fcdf, rows = _cdf_rows(mean, scale, q, base, w, device,
+                           float_rows=stats is not None)
     t1 = time.perf_counter()
     data = coder.encode(rows, win)
     t2 = time.perf_counter()
@@ -220,14 +281,14 @@ def _code_stream(x, mean, scale, q, stats=None):
     return data, w, side, deq
 
 
-def _decode_stream(data, side, mean, scale, q, w: int):
+def _decode_stream(data, side, mean, scale, q, w: int, device=None):
     n = mean.shape[0]
     if n == 0:
         return np.zeros(0, np.float32)
     base = _window_base(mean, q, w)
     trace.count("symbols", n)
     with trace.span("codec/cdf"):
-        rows = _cdf_rows(mean, scale, q, base, w)[1]
+        rows = _cdf_rows(mean, scale, q, base, w, device)[1]
     with trace.span("codec/coder"):
         win = coder.decode(rows, data).astype(np.int64)
     rel = win
@@ -403,7 +464,7 @@ def encode_scene(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
                     x, mean, scale, q = x[m3], mean[m3], scale[m3], q[m3]
                 coded[name] = _code_stream(
                     x, mean, scale, q,
-                    stats=None if sst is None else sst[name])
+                    stats=None if sst is None else sst[name], device=dev)
                 # chunk layout in the stream file: [range-coded bytes]
                 # [escape payload]
                 streams[name].append(coded[name][0] + coded[name][2])
@@ -535,7 +596,7 @@ def _decode_scene(out_dir: str, cfg: ModelConfig, dev) -> DecodedScene:
                 if name == "offsets":
                     mean, scale, q = mean[m3], scale[m3], q[m3]
                 vals = _decode_stream(blob[p:p + ln], blob[p + ln:p + ln + ls],
-                                      mean, scale, q, w)
+                                      mean, scale, q, w, dev)
                 if name == "offsets":
                     full = np.zeros(ch["n"] * 3 * cfg.n_offsets, np.float32)
                     full[m3] = vals

@@ -179,6 +179,35 @@ def test_stream_coding_matches_jax(kind):
     np.testing.assert_allclose(deq, expected, atol=1e-6)
 
 
+def test_cdf_rows_on_cuda_without_a_card_raise(monkeypatch):
+    """`_cdf_rows` asked for a CUDA device launches the kernel or raises: on
+    a machine without a card it raises, and neither the plain version runs
+    nor a launch is counted. On the default device it is the plain version,
+    with no launch."""
+    from contextgs_tpu_torch.compression import cdf_rows as tcdf
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the kernel's tests cover it")
+    x, mean, scale, q = _stream("normal")
+    base = tcodec._window_base(mean, q, 64)
+    before = tcdf.launches
+    want = tcodec._cdf_rows(mean, scale, q, base, 64, float_rows=True)
+    np.testing.assert_array_equal(
+        want[0], jcodec._windowed_cdf_rows(mean, scale, q, base, 64))
+    np.testing.assert_array_equal(want[1], jcoder.quantize_cdf(want[0]))
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran for a CUDA device")
+
+    monkeypatch.setattr(tcodec, "_windowed_cdf_rows", plain)
+    monkeypatch.setattr(tcoder, "quantize_cdf", plain)
+    with pytest.raises(RuntimeError):
+        tcodec._cdf_rows(mean, scale, q, base, 64, torch.device("cuda"))
+    with pytest.raises(RuntimeError):
+        tcodec._decode_stream(b"", b"", mean, scale, q, 64, "cuda")
+    assert tcdf.launches == before
+
+
 def test_stream_stats_match_jax():
     x, mean, scale, q = _stream("outliers")
     got, want = {}, {}

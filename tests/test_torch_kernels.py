@@ -1,7 +1,7 @@
 """The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
 (the lane prefix sum), K4 (the forward's five stages) and K5/K6 (the slab
-transposes) against their plain versions, and the codec's round trip on the
-card.
+transposes) against their plain versions, the codec's CDF rows against
+theirs, and the codec's round trip on the card.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -13,12 +13,16 @@ Tests marked `cuda` skip without a card.
 
 import os
 import re
+from fractions import Fraction
 
 import numpy as np
 import pytest
 import torch
+from scipy.special import ndtr
 
+from contextgs_tpu_torch.compression import cdf_rows as tcdf
 from contextgs_tpu_torch.compression import codec as tcodec
+from contextgs_tpu_torch.compression import coder as tcoder
 from contextgs_tpu_torch.config import ModelConfig
 from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import rasterize as trz
@@ -1013,3 +1017,417 @@ def test_codec_second_encode_identical_on_card(tmp_path):
         with open(os.path.join(dirs[0], name), "rb") as fa, \
                 open(os.path.join(dirs[1], name), "rb") as fb:
             assert fa.read() == fb.read(), name
+
+
+# ---------------------------------------------------- the codec's CDF rows
+
+CDF_SOURCE = tcdf.SOURCE
+
+
+def _cdf_constants() -> dict:
+    """The kernel's constants, read from its source: the Cephes arrays, the
+    scalars and glibc exp's table."""
+    src = CDF_SOURCE.read_text()
+    out = {}
+    for name, body in re.findall(
+            r"__constant__ double (k[A-Z])\[\d+\] = \{([^}]*)\}", src):
+        out[name] = [float(v) for v in body.replace("\n", " ").split(",")]
+    for name, value in re.findall(
+            r"constexpr double (k\w+) = ([-0-9.eE]+);", src):
+        out[name] = float(value)
+    body = re.search(r"kExpTab\[256\] = \{([^}]*)\}", src).group(1)
+    out["tab"] = [int(v.strip().rstrip("ul"), 16)
+                  for v in body.split(",") if v.strip()]
+    return out
+
+
+def _f64(bits: int) -> float:
+    return float(np.array(bits & (2 ** 64 - 1), np.uint64).view(np.float64))
+
+
+def _bits(x: float) -> int:
+    return int(np.array(x, np.float64).view(np.uint64))
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """a·b + c rounded once (exact rationals, then Python's correctly
+    rounded conversion)."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _exp_model(x: float, c: dict) -> float:
+    """The kernel's `exp_glibc`, operation for operation."""
+    kd = c["kInvLn2N"] * x + c["kShift"]
+    ki = _bits(kd)
+    kd -= c["kShift"]
+    r = _fma(kd, c["kNegLn2loN"], _fma(kd, c["kNegLn2hiN"], x))
+    idx = 2 * (ki & 127)
+    tail = _f64(c["tab"][idx])
+    sbits = (c["tab"][idx + 1] + (ki << 45)) & (2 ** 64 - 1)
+    r2 = r * r
+    tmp = _fma(r2 * r2, _fma(r, c["kC5"], c["kC4"]),
+               _fma(r2, _fma(r, c["kC3"], c["kC2"]), tail + r))
+    if abs(x) < 512.0:
+        scale = _f64(sbits)
+        return _fma(scale, tmp, scale)
+    scale = _f64(sbits + (1022 << 52))
+    y = scale + scale * tmp
+    if y < 1.0:
+        lo = (scale - y) + scale * tmp
+        hi = 1.0 + y
+        lo = ((1.0 - hi) + y) + lo
+        y = (hi + lo) - 1.0
+    return c["kTwoM1022"] * y
+
+
+def _polevl(x, coef, one=False):
+    a = x + coef[0] if one else coef[0]
+    for v in coef[1:]:
+        a = a * x + v
+    return a
+
+
+def _ndtr_model(a: float, c: dict) -> float:
+    """The kernel's `ndtr` (Cephes' ndtr, erf and erfc), operation for
+    operation."""
+    if a != a:
+        return a
+    x = a * c["kSqrtH"]
+    z = abs(x)
+    if z < 1.0:
+        zz = x * x
+        return 0.5 + 0.5 * (x * _polevl(zz, c["kT"])
+                            / _polevl(zz, c["kU"], one=True))
+    e2 = -(z * z)
+    if e2 < -c["kMaxLog"]:
+        y = 0.0
+    else:
+        p, q = ((_polevl(z, c["kP"]), _polevl(z, c["kQ"], one=True))
+                if z < 8.0 else
+                (_polevl(z, c["kR"]), _polevl(z, c["kS"], one=True)))
+        y = 0.5 * ((_exp_model(e2, c) * p) / q)
+    return 1.0 - y if x > 0.0 else y
+
+
+def _cdf_rows_model(mean, scale, q, base, w, c):
+    """The kernel's rows, row by row (its `cdf_entry`, quantization and
+    per-row repair): (float64 rows, uint16 rows); raises where the kernel
+    flags a row."""
+    n = mean.shape[0]
+    f = np.zeros((n, w + 1))
+    u = np.zeros((n, w + 1), np.uint16)
+    for i in range(n):
+        s = np.float32(scale[i])
+        sig = float(np.float32(1e-9) if s < np.float32(1e-9) else s)
+        qd, mu, b = float(q[i]), float(mean[i]), float(base[i])
+        qs = []
+        for k in range(w + 1):
+            if k in (0, w):
+                v = float(k == w)
+            else:
+                z = ((b + (k - 0.5)) * qd - mu) / sig
+                v = (float(z > 0.0) if w > 128 and not abs(z) < 6.0
+                     else _ndtr_model(z, c))
+                v = 0.0 if v < 0.0 else (1.0 if v > 1.0 else v)
+            f[i, k] = v
+            qs.append(-1 if v != v else int(np.rint(v * (65536.0 - w))) + k)
+        qs = np.maximum.accumulate(np.array(qs))
+        qs[0], qs[w] = 0, 65536
+        for _ in range(2):
+            if (np.diff(qs) >= 1).all():
+                break
+            qs[1:] = np.maximum(qs[1:], qs[:-1] + 1)
+            qs[w] = 65536
+            qs[:-1] = np.minimum(qs[:-1], 65536 - np.arange(w, 0, -1))
+        if not (np.diff(qs) >= 1).all():
+            raise ValueError("degenerate CDF row")
+        u[i] = qs & 0xFFFF
+    return f, u
+
+
+def _host_cdf_rows(mean, scale, q, base, w):
+    """The plain version on the host: (float64 rows, uint16 rows)."""
+    with np.errstate(invalid="ignore"):
+        f = tcodec._windowed_cdf_rows(mean, scale, q, base, w)
+        return f, tcoder.quantize_cdf(f)
+
+
+def test_plain_model_of_cdf_kernel_ndtr_is_bit_equal():
+    """The kernel's exp and ndtr, run here from the constants in its source,
+    give scipy's `ndtr` bit for bit over each branch: erf's, erfc's two
+    polynomials, glibc exp's fast path and its special case below −512
+    (normal and subnormal results), the underflow, ±∞, ±0 and NaN."""
+    c = _cdf_constants()
+    assert len(c["tab"]) == 256
+    rng = np.random.default_rng(8)
+    z = np.concatenate([
+        rng.uniform(-1.45, 1.45, 1500),            # erf, and its edge
+        rng.uniform(1.4, 11.4, 1500) * rng.choice([-1, 1], 1500),
+        rng.uniform(11.3, 32.0, 800) * rng.choice([-1, 1], 800),
+        -rng.uniform(32.0, 37.7, 800),              # exp's special case
+        -rng.uniform(37.62, 37.68, 300),            # subnormal exp
+        [0.0, -0.0, 1.0 / np.sqrt(2), -np.sqrt(2), 6.0, -6.0, 38.0, -38.0,
+         -40.0, np.inf, -np.inf, np.nan]])
+    got = np.array([_ndtr_model(float(v), c) for v in z])
+    want = ndtr(z)
+    same = (got.view(np.uint64) == want.view(np.uint64)) | (
+        np.isnan(got) & np.isnan(want))
+    assert same.all(), (z[~same][:5], got[~same][:5], want[~same][:5])
+
+
+def test_plain_model_of_cdf_kernel_rows_is_bit_equal():
+    """The kernel's rows, modelled row by row here, equal the plain
+    version's, float64 and uint16: narrow and wide windows, σ at and under
+    the 1e-9 floor, σ far wider than the window, test_coder's σ = 1e-6 rows
+    over −5..5, and NaN σ rows whose repair takes one pass (w = 2) and two
+    (w = 3), mixed in one call with rows needing none; a NaN row at w = 4
+    stays degenerate on both."""
+    c = _cdf_constants()
+    for w, (mean, scale, q, base) in _cdf_edge_cases(small=True):
+        want = _host_cdf_rows(mean, scale, q, base, w)
+        got = _cdf_rows_model(mean, scale, q, base, w, c)
+        np.testing.assert_array_equal(got[1], want[1], err_msg=str(w))
+        np.testing.assert_array_equal(got[0], want[0], err_msg=str(w))
+    mean, scale, q, base = _nan_rows(4)
+    with pytest.raises(ValueError, match="degenerate CDF row"):
+        _host_cdf_rows(mean, scale, q, base, 4)
+    with pytest.raises(ValueError, match="degenerate CDF row"):
+        _cdf_rows_model(mean, scale, q, base, 4, c)
+
+
+def _cdf_stream(kind, n):
+    """(mean, scale, q) float32 of one flat stream of the codec's tests
+    (`test_torch_codec.py::_stream`'s recipe)."""
+    r = np.random.default_rng({"normal": 1, "outliers": 3, "wide": 4,
+                               "int32_escapes": 5}[kind])
+    q = (0.01 * (1 + r.random(n))).astype(np.float32)
+    mean = (r.normal(0, 1, n) * 0.05).astype(np.float32)
+    scale = (0.02 * (0.5 + r.random(n))).astype(np.float32)
+    if kind == "wide":
+        scale = np.full(n, 1.0, np.float32)
+    elif kind == "int32_escapes":
+        mean[::70] = -20000 * q[::70]
+    return mean, scale, q
+
+
+def _nan_rows(n):
+    """Rows of one element each with σ NaN, over a window of 4 symbols."""
+    return (np.zeros(n, np.float32), np.full(n, np.nan, np.float32),
+            np.ones(n, np.float32), np.full(n, -2, np.int64))
+
+
+def _cdf_edge_cases(small: bool) -> list:
+    """[(w, (mean, scale, q, base))]: the rows the kernel must handle beyond
+    the streams'."""
+    rng = np.random.default_rng(12)
+    floor = np.float32(1e-9)
+    sigmas = np.array([floor, np.nextafter(floor, np.float32(0)), 5e-10, 0.0,
+                       -1.0, 1e-40, np.nextafter(floor, np.float32(1)),
+                       1e-6, 0.3, 50.0, 1e4], np.float32)
+    cases = []
+    for w in ((2, 3, 11, 64, 129) if small else
+              (2, 3, 11, 64, 128, 129, 256, 2048)):
+        n = sigmas.size * (2 if small else 40)
+        q = rng.uniform(0.001, 2.0, n).astype(np.float32)
+        mean = (rng.normal(0, 3, n) * q).astype(np.float32)
+        scale = np.resize(sigmas, n) * np.where(
+            np.resize(sigmas, n) > 1e-3, q, 1).astype(np.float32)
+        base = tcodec._window_base(mean, q, w)
+        if w in (2, 3):                 # NaN rows the repair mends
+            nan = _nan_rows(3)
+            mean, scale, q, base = (np.concatenate([a, b]) for a, b in
+                                    zip((mean, scale, q, base),
+                                        (nan[0], nan[1], nan[2],
+                                         np.full(3, -1, np.int64))))
+        cases.append((w, (mean, scale.astype(np.float32), q, base)))
+    # test_coder.py's nearly degenerate rows: σ = 1e-6 over symbols −5..5
+    n = 20 if small else 1000
+    cases.append((11, (np.zeros(n, np.float32), np.full(n, 1e-6, np.float32),
+                       np.ones(n, np.float32), np.full(n, -5, np.int64))))
+    return cases
+
+
+@pytest.mark.parametrize("w", [64, 256])
+def test_cdf_probe_rows_take_every_branch_and_pass_on_this_host(w):
+    """The rows `codec._check_card` holds the kernel to before its first
+    build take each branch of its ndtr, at least 10 entries each: erf's,
+    erfc's first polynomial, its second with glibc exp's fast path and with
+    its special case (a² > 512), the underflow and, at w > 128, both sides
+    of the cut at |z| = 6; and the kernel's arithmetic, modelled here, gives
+    this host's plain rows on them bit for bit, so the check passes here."""
+    mean, scale, q, base = tcodec._probe_rows(w)
+    sig = np.maximum(scale, np.float32(1e-9)).astype(np.float64)
+    edges = (base[:, None] + (np.arange(w + 1) - 0.5)[None, :]) * q[
+        :, None].astype(np.float64)
+    z = ((edges - mean[:, None]) / sig[:, None])[:, 1:-1]
+    a = np.abs(z) * np.sqrt(0.5)
+    if w > 128:
+        assert (np.abs(z) >= 6).sum() >= 10
+        a = a[np.abs(z) < 6]
+    branches = dict(erf=a < 1, erfc_pq=(a >= 1) & (a < 8),
+                    erfc_rs_fast=(a >= 8) & (a * a < 512),
+                    erfc_rs_special=(a * a >= 512) & (a * a < 709.78),
+                    underflow=a * a > 709.79)
+    if w > 128:       # |z| < 6: erf's and erfc's first polynomial only
+        branches = {k: branches[k] for k in ("erf", "erfc_pq")}
+    counts = {k: int(v.sum()) for k, v in branches.items()}
+    assert min(counts.values()) >= 10, counts
+    want = _host_cdf_rows(mean, scale, q, base, w)
+    got = _cdf_rows_model(mean, scale, q, base, w, _cdf_constants())
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.int64),
+                                  want[0].view(np.int64))
+
+
+def test_cdf_rows_take_the_plain_version_on_the_cpu():
+    """`_cdf_rows` on no device or the CPU is the plain version, float64
+    rows only where asked, and launches nothing."""
+    mean, scale, q = _cdf_stream("normal", 300)
+    base = tcodec._window_base(mean, q, 64)
+    want = _host_cdf_rows(mean, scale, q, base, 64)
+    before = tcdf.launches
+    for device in (None, torch.device("cpu"), "cpu"):
+        f, u = tcodec._cdf_rows(mean, scale, q, base, 64, device)
+        assert f is None
+        np.testing.assert_array_equal(u, want[1])
+        f, u = tcodec._cdf_rows(mean, scale, q, base, 64, device,
+                                float_rows=True)
+        np.testing.assert_array_equal(f, want[0])
+        np.testing.assert_array_equal(u, want[1])
+    assert tcdf.launches == before
+
+
+def _assert_cdf_rows_equal(got, want, label):
+    """uint16 rows equal; float64 rows within 4e-16 (NaN where NaN)."""
+    np.testing.assert_array_equal(got[1], want[1], err_msg=label)
+    assert got[0].shape == want[0].shape, label
+    nan = np.isnan(want[0])
+    np.testing.assert_array_equal(np.isnan(got[0]), nan, err_msg=label)
+    assert np.abs(got[0][~nan] - want[0][~nan]).max() <= 4e-16, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "outliers", "wide",
+                                  "int32_escapes"])
+def test_cdf_rows_kernel_matches_plain_version(kind):
+    """The kernel's rows against the plain version's on the card's host, for
+    the codec tests' four streams at w = 64, 256 and 2048: 9.5M entries a
+    stream, uint16 exact, float64 within 4e-16. One launch a call, once the
+    host check has run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    dev = torch.device("cuda")
+    tcodec._check_card(dev)      # its two launches, once a process
+    mean, scale, q = _cdf_stream(kind, 4000)
+    for w in (64, 256, 2048):
+        base = tcodec._window_base(mean, q, w)
+        before = tcdf.launches
+        got = tcodec._cdf_rows(mean, scale, q, base, w, dev, float_rows=True)
+        assert tcdf.launches == before + 1
+        _assert_cdf_rows_equal(got, _host_cdf_rows(mean, scale, q, base, w),
+                               f"{kind} w={w}")
+        rows = tcodec._cdf_rows(mean, scale, q, base, w, dev)
+        assert rows[0] is None
+        np.testing.assert_array_equal(rows[1], got[1])
+
+
+@pytest.mark.cuda
+def test_cdf_rows_kernel_edge_rows():
+    """σ at and under the 1e-9 floor, σ far wider than the window,
+    test_coder's σ = 1e-6 rows over −5..5, NaN rows the repair mends in one
+    pass and in two mixed with rows it leaves alone, and every width from
+    2 to 2048 about the warp/block boundary; a NaN row at w = 64 is
+    degenerate on both and raises the same error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    dev = torch.device("cuda")
+    for w, (mean, scale, q, base) in _cdf_edge_cases(small=False):
+        got = tcodec._cdf_rows(mean, scale, q, base, w, dev, float_rows=True)
+        _assert_cdf_rows_equal(got, _host_cdf_rows(mean, scale, q, base, w),
+                               f"w={w}")
+    mean, scale, q, base = _nan_rows(5)
+    for call in (lambda: _host_cdf_rows(mean, scale, q, base, 64),
+                 lambda: tcodec._cdf_rows(mean, scale, q, base, 64, dev)):
+        with pytest.raises(ValueError, match="degenerate CDF row"):
+            call()
+
+
+@pytest.mark.cuda
+def test_cdf_rows_host_check_refuses_a_host_that_computes_otherwise(
+        monkeypatch):
+    """Where the host's plain rows differ from the kernel's in one float64
+    bit of one probe entry, the card's first build raises, builds nothing
+    for the codec, and raises again at the next call: no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    dev = torch.device("cuda")
+    plain = tcodec._windowed_cdf_rows
+
+    def other_host(*args):
+        f = plain(*args)
+        f.view(np.int64)[5, 7] += 1
+        return f
+
+    monkeypatch.setattr(tcodec, "_card_checked", False)
+    monkeypatch.setattr(tcodec, "_windowed_cdf_rows", other_host)
+    mean, scale, q = _cdf_stream("normal", 100)
+    base = tcodec._window_base(mean, q, 64)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="differ from this host"):
+            tcodec._cdf_rows(mean, scale, q, base, 64, dev)
+    assert tcodec._card_checked is False
+    monkeypatch.setattr(tcodec, "_windowed_cdf_rows", plain)
+    got = tcodec._cdf_rows(mean, scale, q, base, 64, dev)
+    assert tcodec._card_checked is True
+    np.testing.assert_array_equal(got[1], _host_cdf_rows(mean, scale, q,
+                                                         base, 64)[1])
+
+
+@pytest.mark.cuda
+def test_codec_card_encode_writes_the_plain_rows_bytes(tmp_path,
+                                                      monkeypatch):
+    """A card encode writes the same files, byte for byte, as the same
+    encode with its rows built by the plain version on the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    cfg, p, b, voxel = _card_model()
+    card = str(tmp_path / "card")
+    before = tcdf.launches
+    tcodec.encode_scene(p, b, cfg, [4.0, 16.0], voxel, card)
+    assert tcdf.launches > before
+    plain = tcodec._cdf_rows
+    monkeypatch.setattr(tcodec, "_cdf_rows",
+                        lambda *a, **kw: plain(*a[:5], None,
+                                               kw.get("float_rows", False)))
+    host = str(tmp_path / "host")
+    before = tcdf.launches
+    tcodec.encode_scene(p, b, cfg, [4.0, 16.0], voxel, host)
+    assert tcdf.launches == before
+    names = sorted(os.listdir(card))
+    assert names == sorted(os.listdir(host))
+    for name in names:
+        with open(os.path.join(card, name), "rb") as fa, \
+                open(os.path.join(host, name), "rb") as fb:
+            assert fa.read() == fb.read(), name
+
+
+@pytest.mark.cuda
+def test_codec_card_decode_launches_once_a_chunk(tmp_path, monkeypatch):
+    """A card decode launches the kernel once for each `_cdf_rows` call,
+    one a stream chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    cfg, p, b, voxel = _card_model()
+    tcodec.encode_scene(p, b, cfg, [4.0, 16.0], voxel, str(tmp_path))
+    calls = []
+    real = tcodec._cdf_rows
+
+    def counted(*args, **kw):
+        calls.append(args[5] if len(args) > 5 else kw.get("device"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tcodec, "_cdf_rows", counted)
+    before = tcdf.launches
+    tcodec.decode_scene(str(tmp_path), cfg)
+    assert calls and all(torch.device(d).type == "cuda" for d in calls)
+    assert tcdf.launches - before == len(calls)

@@ -31,6 +31,7 @@ from contextgs_tpu_torch.models import state as st
 from contextgs_tpu_torch.models.levels import segmented_carry
 from contextgs_tpu_torch.models.state import Buffers, Params
 from contextgs_tpu_torch.train.optim import AdamState
+from contextgs_tpu_torch.utils import trace
 
 
 def accumulate_stats(buffers: Buffers, neural_opacity: torch.Tensor,
@@ -112,7 +113,8 @@ class DensifyResult(NamedTuple):
 def _group_max(values: torch.Tensor, group: torch.Tensor, rows: torch.Tensor):
     """Per row of `rows`, the max of `values` over the members of its
     group (members: the elements `values` lists, groups `group`)."""
-    uniq, inv = torch.unique(group, return_inverse=True)
+    with trace.sync("densify.unique"):
+        uniq, inv = torch.unique(group, return_inverse=True)
     out = torch.full((uniq.numel(), values.shape[1]), -1e30,
                      dtype=values.dtype, device=values.device)
     out.scatter_reduce_(0, inv[:, None].expand_as(values), values, "amax")
@@ -150,86 +152,99 @@ def adjust_anchors(params: Params, buffers: Buffers, adam: AdamState,
     if draws is None:
         draws = keep_draws(generator, cfg.update_depth, nk, dev)
     slot = torch.arange(nk, dtype=torch.int32, device=dev)
+    # the new anchors' constants are filled on the device: a copy from host
+    # memory (a tensor of host values, or a Python number written into rows)
+    # would wait for it
+    unit_rotation = torch.eye(1, 4, **f32)
+    opacity_init = torch.log(torch.full((), 0.1 / 0.9, **f32))
 
     for i in range(cfg.update_depth):
-        thr = opt.densify_grad_threshold * ((cfg.update_hierachy_factor // 2)
-                                            ** i)
-        size_factor = cfg.update_init_factor // (cfg.update_hierachy_factor
-                                                 ** i)
-        cur_size = torch.tensor(voxel_size * size_factor, **f32)
+        with trace.span("densify/grow"):
+            thr = (opt.densify_grad_threshold
+                   * ((cfg.update_hierachy_factor // 2) ** i))
+            size_factor = (cfg.update_init_factor
+                           // (cfg.update_hierachy_factor ** i))
+            cur_size = torch.full((), voxel_size * size_factor, **f32)
 
-        cand = ((grads >= thr) & offset_mask & (draws[i] > 0.5 ** (i + 1))
-                & alive.repeat_interleave(k))
-        anchor_q = st.get_anchor(params, buffers)
-        scaling3 = st.get_scaling(params)[:, :3]
-        all_xyz = (anchor_q[:, None, :]
-                   + params.offsets * scaling3[:, None, :]).reshape(nk, 3)
-        cand_keys = torch.round(all_xyz / cur_size).to(torch.int32)
-        anchor_keys = torch.round(anchor_q / cur_size).to(torch.int32)
+            cand = ((grads >= thr) & offset_mask
+                    & (draws[i] > 0.5 ** (i + 1))
+                    & alive.repeat_interleave(k))
+            anchor_q = st.get_anchor(params, buffers)
+            scaling3 = st.get_scaling(params)[:, :3]
+            all_xyz = (anchor_q[:, None, :]
+                       + params.offsets * scaling3[:, None, :]).reshape(nk, 3)
+            cand_keys = torch.round(all_xyz / cur_size).to(torch.int32)
+            anchor_keys = torch.round(anchor_q / cur_size).to(torch.int32)
 
-        gid, is_leader, _ = _sorted_groups(cand_keys, cand, slot)
-        occ_keys, occ_valid = anchor_keys, alive
-        if group is not None:
-            occ_keys = group.all_gather(anchor_keys)
-            occ_valid = group.all_gather(alive)
-        occupied = _voxel_occupied(cand_keys, cand, occ_keys, occ_valid)
-        # a group is occupied iff any member is (same voxel)
-        occ_per_group = torch.zeros(nk, dtype=torch.int32, device=dev)
-        occ_per_group.scatter_reduce_(0, gid, occupied.to(torch.int32),
-                                      "amax")
-        new_leader = cand & is_leader & (occ_per_group[gid] == 0)
+            gid, is_leader, _ = _sorted_groups(cand_keys, cand, slot)
+            occ_keys, occ_valid = anchor_keys, alive
+            if group is not None:
+                occ_keys = group.all_gather(anchor_keys)
+                occ_valid = group.all_gather(alive)
+            occupied = _voxel_occupied(cand_keys, cand, occ_keys, occ_valid)
+            # a group is occupied iff any member is (same voxel)
+            occ_per_group = torch.zeros(nk, dtype=torch.int32, device=dev)
+            occ_per_group.scatter_reduce_(0, gid, occupied.to(torch.int32),
+                                          "amax")
+            new_leader = cand & is_leader & (occ_per_group[gid] == 0)
 
-        # allocate free slots in index order
-        free_order = torch.argsort(alive.to(torch.int32), stable=True)
-        n_free = (~alive).sum()
-        rank = torch.cumsum(new_leader, 0) - 1
-        can_place = new_leader & (rank < n_free)
-        overflow |= (new_leader & (rank >= n_free)).any()
-        src = torch.nonzero(can_place).squeeze(1)
-        dest = free_order[rank[src]]
+            # allocate free slots in index order
+            free_order = torch.argsort(alive.to(torch.int32), stable=True)
+            n_free = (~alive).sum()
+            rank = torch.cumsum(new_leader, 0) - 1
+            can_place = new_leader & (rank < n_free)
+            overflow |= (new_leader & (rank >= n_free)).any()
+            with trace.sync("densify.placed"):
+                src = torch.nonzero(can_place).squeeze(1)
+            dest = free_order[rank[src]]
 
-        # voxel-max feature/hyper over the candidates of the group
-        members = torch.nonzero(cand).squeeze(1)
-        for name in ("anchor_feat", "hyper_latent"):
-            leaf = getattr(params, name)
-            leaf[dest] = _group_max(leaf[members // k], gid[members],
-                                    gid[src])
-        params.anchor[dest] = cand_keys[src].to(torch.float32) * cur_size
-        params.offsets[dest] = 0.0
-        params.mask_logit[dest] = 1.0
-        params.scaling_log[dest] = torch.log(cur_size)
-        params.rotation[dest] = torch.tensor([1.0, 0.0, 0.0, 0.0], **f32)
-        params.opacity_raw[dest] = torch.log(torch.tensor(0.1 / 0.9, **f32))
-        placed = torch.zeros(n, dtype=torch.bool, device=dev)
-        placed[dest] = True
-        alive = alive | placed
-        # zero Adam moments and stats of activated slots
-        for moments in (adam.mu, adam.nu):
-            for name in st.ANCHOR_FIELDS:
-                moments[name][placed] = 0.0
-        opacity_accum = torch.where(placed, 0.0, opacity_accum)
-        anchor_denom = torch.where(placed, 0.0, anchor_denom)
-        offset_grad_accum = torch.where(placed[:, None], 0.0,
+            # voxel-max feature/hyper over the candidates of the group
+            with trace.sync("densify.members"):
+                members = torch.nonzero(cand).squeeze(1)
+            for name in ("anchor_feat", "hyper_latent"):
+                leaf = getattr(params, name)
+                leaf[dest] = _group_max(leaf[members // k], gid[members],
+                                        gid[src])
+            params.anchor[dest] = cand_keys[src].to(torch.float32) * cur_size
+            params.offsets.index_fill_(0, dest, 0.0)
+            params.mask_logit.index_fill_(0, dest, 1.0)
+            params.scaling_log[dest] = torch.log(cur_size)
+            params.rotation[dest] = unit_rotation
+            params.opacity_raw[dest] = opacity_init
+            placed = torch.zeros(n, dtype=torch.bool, device=dev).index_fill_(
+                0, dest, True)
+            alive = alive | placed
+            # zero Adam moments and stats of activated slots
+            for moments in (adam.mu, adam.nu):
+                for name in st.ANCHOR_FIELDS:
+                    moments[name][placed] = 0.0
+            opacity_accum = torch.where(placed, 0.0, opacity_accum)
+            anchor_denom = torch.where(placed, 0.0, anchor_denom)
+            offset_grad_accum = torch.where(placed[:, None], 0.0,
+                                            offset_grad_accum)
+            offset_denom = torch.where(placed[:, None], 0.0, offset_denom)
+            total_grown = total_grown + can_place.sum()
+
+    with trace.span("densify/prune"):
+        # reset offset stats where they were consumed
+        om = offset_mask.reshape(n, k)
+        offset_denom = torch.where(om, 0.0, offset_denom)
+        offset_grad_accum = torch.where(om, 0.0, offset_grad_accum)
+
+        # prune; anchors with enough observations get their opacity stats
+        # reset
+        enough = anchor_denom > opt.update_interval * opt.success_threshold
+        prune = ((opacity_accum < opt.min_opacity * anchor_denom) & enough
+                 & alive)
+        opacity_accum = torch.where(enough, 0.0, opacity_accum)
+        anchor_denom = torch.where(enough, 0.0, anchor_denom)
+        alive = alive & ~prune
+        offset_grad_accum = torch.where(prune[:, None], 0.0,
                                         offset_grad_accum)
-        offset_denom = torch.where(placed[:, None], 0.0, offset_denom)
-        total_grown = total_grown + can_place.sum()
+        offset_denom = torch.where(prune[:, None], 0.0, offset_denom)
 
-    # reset offset stats where they were consumed
-    om = offset_mask.reshape(n, k)
-    offset_denom = torch.where(om, 0.0, offset_denom)
-    offset_grad_accum = torch.where(om, 0.0, offset_grad_accum)
-
-    # prune; anchors with enough observations get their opacity stats reset
-    enough = anchor_denom > opt.update_interval * opt.success_threshold
-    prune = (opacity_accum < opt.min_opacity * anchor_denom) & enough & alive
-    opacity_accum = torch.where(enough, 0.0, opacity_accum)
-    anchor_denom = torch.where(enough, 0.0, anchor_denom)
-    alive = alive & ~prune
-    offset_grad_accum = torch.where(prune[:, None], 0.0, offset_grad_accum)
-    offset_denom = torch.where(prune[:, None], 0.0, offset_denom)
-
-    # survivors' gaussian log-scales are clamped at 0.05 on every round
-    params.scaling_log[:, 3:].clamp_(max=0.05)
+        # survivors' gaussian log-scales are clamped at 0.05 on every round
+        params.scaling_log[:, 3:].clamp_(max=0.05)
 
     buffers = buffers._replace(
         alive=alive, opacity_accum=opacity_accum, anchor_denom=anchor_denom,

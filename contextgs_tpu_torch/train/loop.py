@@ -115,6 +115,35 @@ def grow_capacity(model: SceneModel, adam: AdamState,
     return SceneModel(params, buffers), adam
 
 
+def _densify_round(ts: TrainerState, cfg: TrainConfig,
+                   it: int) -> SceneModel:
+    """One densification round on `ts` (its model and Adam state replaced),
+    the pool doubled where the round ran out of free slots; its counts
+    come back to the host in one read."""
+    model = ts.model
+    res = densify.adjust_anchors(model.params, model.buffers, ts.adam,
+                                 cfg.model, cfg.opt, ts.voxel_size,
+                                 ts.generator)
+    ts.model = model = SceneModel(res.params, res.buffers)
+    ts.adam = res.adam
+    with trace.sync("densify.counts"):
+        grown, pruned, alive, overflowed = torch.stack([
+            res.n_grown, res.n_pruned, model.buffers.alive.sum(),
+            res.overflowed.to(torch.int64)]).tolist()
+    trace.count("anchors_grown", grown)
+    trace.count("anchors_pruned", pruned)
+    log.info("iter %d densify: grown %d, pruned %d, anchors %d", it, grown,
+             pruned, alive)
+    if overflowed:
+        with trace.span("train/pool_grow"):
+            cap = model.buffers.alive.shape[0] * 2
+            log.warning("anchor pool full at iter %d → growing to %d", it,
+                        cap)
+            model, ts.adam = grow_capacity(model, ts.adam, cap)
+            ts.model = model
+    return model
+
+
 def _to_image(cam, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(
         np.transpose(cam.image, (2, 0, 1)))).to(dev)
@@ -197,19 +226,8 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
         if (opt.update_from < it < opt.update_until
                 and it % opt.update_interval == 0
                 and not (3000 <= it < 4000)):
-            res = densify.adjust_anchors(model.params, model.buffers, ts.adam,
-                                         cfg.model, opt, ts.voxel_size,
-                                         ts.generator)
-            ts.model = model = SceneModel(res.params, res.buffers)
-            ts.adam = res.adam
-            log.info("iter %d densify: grown %d, pruned %d, anchors %d", it,
-                     int(res.n_grown), int(res.n_pruned), st.n_alive(model))
-            if bool(res.overflowed):
-                cap = model.buffers.alive.shape[0] * 2
-                log.warning("anchor pool full at iter %d → growing to %d",
-                            it, cap)
-                model, ts.adam = grow_capacity(model, ts.adam, cap)
-                ts.model = model
+            with trace.span("train/densify"):
+                model = _densify_round(ts, cfg, it)
 
         if callback is not None:
             callback(it, ts, metrics)

@@ -91,6 +91,12 @@ after every phase has held.
    seeded 100k-point cloud. K3's count is set to 0 with K1's and read
    after: K3 is off the main path (the rasterizer's prefix sums are
    torch.cumsum, as the reference's are jnp.cumsum).
+   projection_check: the projection's and the cull's launch counts (one
+   each a view), then the two kernels (ops/rasterize/csrc/projection.cu)
+   against the plain chain on the last view's inputs (floats within 2e-6
+   relative, every integer output and the cull mask equal), each timed by
+   events (and by card_ms) beside the plain chain, with its bound from
+   bytes.
 4. ssim_grad — the SSIM gradient at 1280x720 on the card against float64 on
    the CPU (1e-5 relative; cuDNN's TF32 would give about 1e-3, printed too).
 5. train — the main path of training at full width: train() from
@@ -126,6 +132,12 @@ after every phase has held.
    where its copy is present, with the shuffles and global atomics of both
    designs counted from the pair counts; and k2_knockouts: K2 beside its
    knock-outs on the serve view (no reduce-scatter; no cull).
+   projection_check on the last step's inputs: one projection, cull and
+   backward launch a step, the forward and the cull as on the serve view,
+   and the backward's gradient of seeded cotangents against autograd of
+   the plain chain and reference.project_vjp_reference (each leaf within
+   1e-5 of its norm, no element off by more than 1e-4 of its largest),
+   timed by events beside the plain chain's backward.
 5b. viewer — the live SIBR viewer on the train cell's final model at
    1280x720 (viewer_phase): a loopback client sends the camera messages of
    4 orbit cameras as SIBR sends them (transposed, columns negated), one
@@ -332,7 +344,8 @@ after every phase has held.
    raster_tools scripts; K2's: train, drivers, bench, rd_branch, the
    sharded three, scaling_bench and the raster_tools scripts but
    fps_bench; the CDF kernel's: the host check, codec, cdf_check and
-   drivers, the last for every driver and tool script of phase 6b),
+   drivers, the last for every driver and tool script of phase 6b; the
+   projection's: serve and train, forward, cull and backward),
    then the card line from nvidia-smi, then the result.
 """
 
@@ -1156,6 +1169,139 @@ def check_k2(case, res):
     emit(phase="k2_check", case=case, **res)
     check(res["finite"] and res["envelope_err"] <= ENVELOPE,
           f"K2 {case} inside the plain envelope")
+
+
+def keep_call(store):
+    """Wrapper that keeps the arguments and keywords of the last call in
+    `store["call"]`."""
+    def wrap(fn):
+        def call(*args, **kw):
+            store["call"] = (args, kw)
+            return fn(*args, **kw)
+        return call
+    return wrap
+
+
+# bytes a gaussian (an anchor) each projection kernel must move: the
+# forward reads means, scales, quats (12, 12, 16), opacities (4) and valid
+# (1) and writes means2d, conics, depths, radii, the two rects and n_tiles
+# (48); the cull reads means and the scales' first three (24) and valid (1)
+# and writes the mask (1); the backward reads means, scales, quats and the
+# cotangents of means2d and conics (8, 12; depths' where given, 4) and
+# writes the three gradients (40)
+PROJ_BYTES = dict(forward=45 + 48, cull=25 + 1, backward=40 + 20 + 40)
+
+
+def grad_gap(got, want):
+    """(‖g − w‖ / ‖w‖, max |g − w| / max |w|), the worst leaf's of each,
+    over the elements where `want` is finite; None where `got` is not finite
+    there."""
+    norm, elem = 0.0, 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        fin = torch.isfinite(w)
+        if not bool(torch.isfinite(g[fin]).all()):
+            return None
+        g, w = torch.where(fin, g, 0.0), torch.where(fin, w, 0.0)
+        norm = max(norm, float((g - w).norm() / w.norm()))
+        elem = max(elem, float((g - w).abs().max() / w.abs().max()))
+    return norm, elem
+
+
+def projection_check(where, proj_call, cull_call, dev, backward_seed=None):
+    """The projection's kernels (ops/rasterize/csrc/projection.cu) against
+    the plain chain on the last inputs a phase gave them (`keep_call`):
+    outputs, the cull mask and, with `backward_seed`, the gradient of
+    seeded cotangents of means2d and conics against autograd of the plain
+    chain and reference.project_vjp_reference; each timed by events beside
+    the plain chain, and its bound from bytes at 3.35 TB/s."""
+    from contextgs_tpu_torch.ops.rasterize import projection as tproj
+    from contextgs_tpu_torch.ops.rasterize import reference
+
+    args, kw = proj_call
+    args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    kw = {k: v.detach() if isinstance(v, torch.Tensor) else v
+          for k, v in kw.items()}
+    n = args[0].shape[0]
+    with torch.no_grad():
+        got = tproj.project_gaussians(*args, **kw)
+        want = tproj.project_gaussians_plain(*args, **kw)
+    res = dict(where=where, n_gaussians=n, kept=int((want.radii > 0).sum()))
+    for name in ("means2d", "conics", "depths"):
+        a, b = getattr(got, name), getattr(want, name)
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        rel = torch.where(same, 0.0, (a - b).abs() / b.abs())
+        res[f"{name}_max_rel"] = float(rel.max())
+        res[f"{name}_bit_equal"] = bool(same.all())
+    res["int_mismatch"] = {
+        name: int((getattr(got, name) != getattr(want, name)).reshape(
+            n, -1).any(1).sum())
+        for name in ("radii", "rect_min", "rect_max", "n_tiles")}
+    c_args, c_kw = cull_call
+    c_args = tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                   for a in c_args)
+    n_anchors = c_args[0].shape[0]
+    with torch.no_grad():
+        res["cull_mismatch"] = int((tproj.visible_filter(*c_args, **c_kw)
+                                    != tproj.visible_filter_plain(
+                                        *c_args, **c_kw)).sum())
+    res["n_anchors"] = n_anchors
+    with torch.no_grad():
+        res["ms"] = cuda_ms(lambda: tproj.project_gaussians(*args, **kw), 50)
+        res["plain_ms"] = cuda_ms(
+            lambda: tproj.project_gaussians_plain(*args, **kw), 5)
+        res["card_ms"] = card_ms(lambda: tproj.project_gaussians(*args,
+                                                                 **kw))
+        res["cull_ms"] = cuda_ms(lambda: tproj.visible_filter(*c_args,
+                                                              **c_kw), 50)
+        res["cull_plain_ms"] = cuda_ms(
+            lambda: tproj.visible_filter_plain(*c_args, **c_kw), 5)
+        res["cull_card_ms"] = card_ms(
+            lambda: tproj.visible_filter(*c_args, **c_kw))
+    res["bound_ms"] = PROJ_BYTES["forward"] * n / PEAK_HBM_BYTES * 1e3
+    res["cull_bound_ms"] = PROJ_BYTES["cull"] * n_anchors / PEAK_HBM_BYTES * 1e3
+    ok = (all(res[f"{k}_max_rel"] <= 2e-6
+              for k in ("means2d", "conics", "depths"))
+          and not any(res["int_mismatch"].values())
+          and res["cull_mismatch"] == 0)
+    if backward_seed is not None:
+        gen = torch.Generator(dev).manual_seed(backward_seed)
+        d_m = torch.randn((n, 2), generator=gen, device=dev)
+        d_c = torch.randn((n, 3), generator=gen, device=dev)
+
+        def grads(project):
+            leaves = [a.clone().requires_grad_() for a in args[:3]]
+            out = project(*leaves, *args[3:], **kw)
+            return torch.autograd.grad(
+                (out.means2d * d_m).sum() + (out.conics * d_c).sum(), leaves)
+
+        g_kernel, g_plain = grads(tproj.project_gaussians), grads(
+            tproj.project_gaussians_plain)
+        smod = args[10] if len(args) > 10 else kw.get("scale_modifier", 1.0)
+        g_ref = reference.project_vjp_reference(*args[:9], d_m, d_c, None,
+                                                scale_modifier=smod)
+        res["grad_vs_autograd"] = grad_gap(g_kernel, g_plain)
+        res["grad_vs_reference"] = grad_gap(g_kernel, g_ref)
+        geom = tproj._geometry(
+            *args[5:9], args[9] if len(args) > 9 else kw.get("tile_size", 16),
+            smod, kw.get("tile_band"))
+        res["backward_ms"] = cuda_ms(lambda: tproj._project_backward(
+            args[:5], geom, d_m, d_c, None), 50)
+        res["backward_card_ms"] = card_ms(lambda: tproj._project_backward(
+            args[:5], geom, d_m, d_c, None))
+        res["fwd_bwd_ms"] = cuda_ms(lambda: grads(tproj.project_gaussians),
+                                    20)
+        res["fwd_bwd_plain_ms"] = cuda_ms(
+            lambda: grads(tproj.project_gaussians_plain), 5)
+        res["backward_bound_ms"] = (PROJ_BYTES["backward"] * n
+                                    / PEAK_HBM_BYTES * 1e3)
+        ok = ok and all(g is not None and g[0] <= 1e-5 and g[1] <= 1e-4
+                        for g in (res["grad_vs_autograd"],
+                                  res["grad_vs_reference"]))
+    emit(phase="projection_check", **res)
+    check(ok, f"the projection's kernels against the plain chain, {where}")
+    return res
 
 
 def ssim_grad(dev):
@@ -3736,6 +3882,7 @@ def main() -> int:
     from contextgs_tpu_torch.models import renderer as trenderer
     from contextgs_tpu_torch.models import state as tst
     from contextgs_tpu_torch.ops import cuda_build, scan
+    from contextgs_tpu_torch.ops.rasterize import projection as tproj
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
     from contextgs_tpu_torch.scripts import kvariants, xpose_lab
     from contextgs_tpu_torch.scripts.fps_bench import decoded_scene
@@ -3758,7 +3905,7 @@ def main() -> int:
           "reference.FWD_WARP is the warp of K1's source")
     t0 = time.perf_counter()
     cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
-                                            xpose_lab.SOURCE)
+                                            xpose_lab.SOURCE, tproj.SOURCE)
                      + (tuple(prev.values()) if prev else ())
                      + (tuple(prev_offset.values()) if prev_offset else ())
                      + tuple(knockouts.values())
@@ -3780,6 +3927,7 @@ def main() -> int:
          build_s=build_s, k1_ptxas=ptxas("blend_forward"),
          k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"),
          k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"),
+         projection_ptxas=ptxas("projection"),
          prev_sources=prev, k2_prev_ptxas=ptxas("blend_backward_prev"),
          k2_knockouts=sorted(knockouts), k1_geometry=geometry,
          k1_other_geometries=sorted(geometry_sources),
@@ -3871,12 +4019,18 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     k1_kept, sort_kept, view_ms = {}, {}, []
+    proj_kept, cull_kept = {}, {}
     with wrapped(trz, "blend_forward", keep_args(k1_kept)), \
-            wrapped(trz, "expand_and_sort", keep_args(sort_kept)):
+            wrapped(trz, "expand_and_sort", keep_args(sort_kept)), \
+            wrapped(trz, "project_gaussians", keep_call(proj_kept)), \
+            wrapped(trz, "visible_filter", keep_call(cull_kept)):
         tile_kernel.launches = scan.launches = 0
+        tproj.launches = tproj.cull_launches = 0
         renders, gts, fps = render_set(render, cams, bg, view_ms=view_ms)
         torch.cuda.synchronize()
         k1_launches, k3_serve = tile_kernel.launches, scan.launches
+        proj_serve = dict(serve=tproj.launches,
+                          serve_cull=tproj.cull_launches)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = evaluate_images(renders, gts)
     timed = view_ms[WARMUP:]
@@ -3889,6 +4043,8 @@ def main() -> int:
          peak_mem_gib=peak_gib, PSNR=metrics["PSNR"], SSIM=metrics["SSIM"],
          LPIPS=metrics["LPIPS"])
     check(k1_launches == N_VIEWS, "K1 launches on the main path != views")
+    check(proj_serve == dict(serve=N_VIEWS, serve_cull=N_VIEWS),
+          "one projection and one cull launch a view")
     check(all(tuple(r.shape) == (3, H, W) and bool(torch.isfinite(r).all())
               for r in renders), "renders finite [3,H,W]")
     check(math.isfinite(metrics["PSNR"]) and math.isfinite(metrics["SSIM"]),
@@ -3941,6 +4097,10 @@ def main() -> int:
          pairs_listed=256 * int(ids.numel()), **k1_bound, k1_ms=k1_ms,
          plain_ms=plain_ms, share_of_bound=k1_bound["bound_ms"] / k1_ms,
          share_of_bound_walked=k1_bound["bound_walked_ms"] / k1_ms)
+    proj_serve_res = projection_check("serve_100k_1280x720",
+                                      proj_kept["call"], cull_kept["call"],
+                                      dev)
+    del proj_kept, cull_kept
     # K2 on the serve view's K1 inputs with seeded cotangents: a denser
     # list than training's; checked here, timed against the previous K2
     # after training
@@ -4031,6 +4191,7 @@ def main() -> int:
         update_interval=10, update_until=75),
         test_iterations=(), save_iterations=(), log_every=10 ** 9)
     log, losses, bpps, step_ms, k2_kept, level_calls = [], [], [], [], {}, []
+    proj_kept, cull_kept = {}, {}
     t_prev = [time.perf_counter()]
 
     def mark_step(it, ts, metrics):
@@ -4061,14 +4222,22 @@ def main() -> int:
                                         timed_call(stage, log, summary)))
         stack.enter_context(wrapped(trz, "blend_backward",
                                     keep_args(k2_kept)))
+        stack.enter_context(wrapped(trz, "project_gaussians",
+                                    keep_call(proj_kept)))
+        stack.enter_context(wrapped(trz, "visible_filter",
+                                    keep_call(cull_kept)))
         tile_kernel.launches = tile_kernel.backward_launches = 0
         scan.launches = 0
+        tproj.launches = tproj.cull_launches = tproj.backward_launches = 0
         t_prev[0] = time.perf_counter()
         ts = tloop.train(tcfg, scene, callback=mark_step)
         torch.cuda.synchronize()
         train_k1 = tile_kernel.launches
         train_k2 = tile_kernel.backward_launches
         k3_train = scan.launches
+        proj_train = dict(train=tproj.launches,
+                          train_cull=tproj.cull_launches,
+                          train_backward=tproj.backward_launches)
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     bpps = [float(x) for x in bpps]
@@ -4115,6 +4284,13 @@ def main() -> int:
          bpp_last5=bpps[-5:])
     check(train_k2 == TRAIN_STEPS, "K2 launches on the training path != steps")
     check(train_k1 == TRAIN_STEPS, "K1 launches on the training path != steps")
+    check(proj_train == dict(train=TRAIN_STEPS, train_cull=TRAIN_STEPS,
+                             train_backward=TRAIN_STEPS),
+          "one projection, cull and backward launch a training step")
+    proj_train_res = projection_check(
+        "train_last_step_1280x720", proj_kept["call"], cull_kept["call"], dev,
+        backward_seed=60)
+    del proj_kept, cull_kept
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           "training losses finite")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]), "training loss falls")
@@ -4371,6 +4547,35 @@ def main() -> int:
              packed_grad_ms=k3_times["packed_grad"]["k3_ms"],
              packed_grad_k3_prev_ms=k3_times["packed_grad"].get(
                  "k3_prev_ms"))]
+    kernels.append(dict(
+        name="projection", route="cuda",
+        source="contextgs_tpu_torch/ops/rasterize/csrc/projection.cu",
+        replaces=None,
+        replaces_xla=("contextgs_tpu/ops/rasterize/projection.py::"
+                      "project_gaussians, visible_filter"),
+        launches=sum(proj_serve.values()) + sum(proj_train.values()),
+        launches_by_path=dict(**proj_serve, **proj_train),
+        max_abs_err=0.0 if proj_serve_res["means2d_bit_equal"] else None,
+        ms=proj_serve_res["ms"], card_ms=proj_serve_res["card_ms"],
+        plain_ms=proj_serve_res["plain_ms"],
+        bound_ms=proj_serve_res["bound_ms"], bound_by="bytes",
+        bound_term="bytes", library_ms=None,
+        n_gaussians=proj_serve_res["n_gaussians"],
+        cull_ms=proj_serve_res["cull_ms"],
+        cull_card_ms=proj_serve_res["cull_card_ms"],
+        cull_plain_ms=proj_serve_res["cull_plain_ms"],
+        cull_bound_ms=proj_serve_res["cull_bound_ms"],
+        n_anchors=proj_serve_res["n_anchors"],
+        train_ms=proj_train_res["ms"],
+        train_plain_ms=proj_train_res["plain_ms"],
+        train_bound_ms=proj_train_res["bound_ms"],
+        backward_ms=proj_train_res["backward_ms"],
+        backward_card_ms=proj_train_res["backward_card_ms"],
+        backward_bound_ms=proj_train_res["backward_bound_ms"],
+        fwd_bwd_ms=proj_train_res["fwd_bwd_ms"],
+        fwd_bwd_plain_ms=proj_train_res["fwd_bwd_plain_ms"],
+        train_n_gaussians=proj_train_res["n_gaussians"],
+        shape="the serve orbit's last view; the last training step"))
     kernels.append(dict(
         name="cdf_rows", route="cuda",
         source="contextgs_tpu_torch/compression/csrc/cdf_rows.cu",

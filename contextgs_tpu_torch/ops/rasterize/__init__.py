@@ -5,12 +5,14 @@
 instances and blends the tiles. The blend is a `torch.autograd.Function`
 (`_TileBlend`, the counterpart of the reference's `_pack_blend` custom VJP):
 its forward is K1 (`tile_kernel.blend_forward`) and its backward K2
-(`tile_kernel.blend_backward`), which gives dL/d rows [G,9]; autograd of the
-plain PyTorch `splat_rows` and `project_gaussians` carries that on to the
-means, scales, quats, colors, opacities and `screen_dummy`. The backend
-follows the tensors: on CUDA tensors the hand-written kernels run, on CPU
-tensors their plain versions (`reference.blend_tiles_reference` and
-`reference.blend_tiles_backward_reference`).
+(`tile_kernel.blend_backward`), which gives dL/d rows [G,9]; autograd of
+`splat_rows` and of `project_gaussians` (on CUDA tensors the projection's
+own kernel pair, `projection._Projection`) carries that on to the means,
+scales, quats, colors, opacities and `screen_dummy`. The backend follows the
+tensors: on CUDA tensors the hand-written kernels run, on CPU tensors their
+plain versions (`reference.blend_tiles_reference`,
+`reference.blend_tiles_backward_reference` and
+`projection.project_gaussians_plain`).
 """
 
 from __future__ import annotations

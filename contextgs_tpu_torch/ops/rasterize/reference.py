@@ -14,6 +14,11 @@ padded block stays under `max_elems`, so a full-size frame fits on the card.
 
 The gradient (`blend_tiles_backward_reference`) is autograd through the same
 group blend, one group at a time, so its memory is that of one group.
+
+`project_vjp_reference` is the closed-form gradient of the projection
+(`projection.project_gaussians`) that its backward kernel
+(`csrc/projection.cu`) computes, formula for formula, with the forward's
+intermediates recomputed from the inputs.
 """
 
 from __future__ import annotations
@@ -309,3 +314,151 @@ def blend_reference(proj: ProjectedGaussians, inst: TileInstances,
     if bg is not None:
         image = image + final_t[None] * bg[:, None, None]
     return image, final_t
+
+
+def _projection_terms(means3d, scales, quats, world_view, full_proj, tanfovx,
+                      tanfovy, width, height, scale_modifier=1.0) -> dict:
+    """The forward's intermediates that its gradient reads, per gaussian,
+    computed op for op as the plain chain computes them
+    (`projection.project_gaussians_plain`), so each is the chain's own."""
+    tanfovx, tanfovy = float(tanfovx), float(tanfovy)
+    fx, fy = width / (2.0 * tanfovx), height / (2.0 * tanfovy)
+    lim_x, lim_y = 1.3 * tanfovx, 1.3 * tanfovy
+    p4 = torch.cat([means3d, torch.ones_like(means3d[:, :1])], 1)
+    v = p4 @ world_view
+    clip = p4 @ full_proj
+    z = v[:, 2]
+    safe_z = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
+    ux, uy = v[:, 0] / safe_z, v[:, 1] / safe_z
+    cx = torch.clamp(ux, -lim_x, lim_x)
+    cy = torch.clamp(uy, -lim_y, lim_y)
+    tx, ty = cx * z, cy * z
+    inv_z = 1.0 / safe_z
+    inv_z2 = inv_z * inv_z
+    rv = world_view[:3, :3].T
+    fxi, fyi = fx * inv_z, fy * inv_z
+    gx, gy = -fx * tx * inv_z2, -fy * ty * inv_z2
+    T = [[fxi * rv[0, j] + gx * rv[2, j] for j in range(3)],
+         [fyi * rv[1, j] + gy * rv[2, j] for j in range(3)]]
+    w, x, y, zq = quats.unbind(1)
+    R = [[1 - 2 * (y * y + zq * zq), 2 * (x * y - w * zq),
+          2 * (x * zq + w * y)],
+         [2 * (x * y + w * zq), 1 - 2 * (x * x + zq * zq),
+          2 * (y * zq - w * x)],
+         [2 * (x * zq - w * y), 2 * (y * zq + w * x),
+          1 - 2 * (x * x + y * y)]]
+    s = [scales[:, j] * scale_modifier for j in range(3)]
+    M = [[R[r][j] * s[j] for j in range(3)] for r in range(3)]
+    C = [[None] * 3 for _ in range(3)]
+    for r in range(3):
+        for q in range(r, 3):
+            C[r][q] = C[q][r] = (M[r][0] * M[q][0] + M[r][1] * M[q][1]
+                                 + M[r][2] * M[q][2])
+
+    def quad(ta, tb):
+        return (ta[0] * tb[0] * C[0][0] + ta[1] * tb[1] * C[1][1]
+                + ta[2] * tb[2] * C[2][2]
+                + (ta[0] * tb[1] + ta[1] * tb[0]) * C[0][1]
+                + (ta[0] * tb[2] + ta[2] * tb[0]) * C[0][2]
+                + (ta[1] * tb[2] + ta[2] * tb[1]) * C[1][2])
+
+    a = quad(T[0], T[0]) + 0.3
+    b = quad(T[0], T[1])
+    c = quad(T[1], T[1]) + 0.3
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+    return dict(v=v, clip=clip, z=z, safe_z=safe_z, ux=ux, uy=uy, cx=cx,
+                cy=cy, tx=tx, ty=ty, inv_z=inv_z, inv_z2=inv_z2, T=mat(T),
+                q=quats, R=mat(R), s=torch.stack(s, 1), M=mat(M), C=mat(C),
+                a=a, b=b, c=c, det=a * c - b * b,
+                pw=1.0 / (clip[:, 3] + 1e-7), fx=fx, fy=fy, lim_x=lim_x,
+                lim_y=lim_y)
+
+
+def project_vjp_reference(means3d, scales, quats, world_view, full_proj,
+                          tanfovx, tanfovy, width, height, d_means2d,
+                          d_conics, d_depths=None, scale_modifier=1.0):
+    """The gradient of `project_gaussians`' means2d [G,2], conics [G,3] and
+    depths [G] with respect to means3d [G,3], scales [G,3] and quats [G,4],
+    given their cotangents (any may be None): the backward kernel's formulas
+    in plain PyTorch. As autograd of the plain chain: a clamp passes the
+    gradient only inside its bounds (included), a where() only to the branch
+    it chose (safe z, safe det); the rect, radius and opacity paths carry
+    none."""
+    e = _projection_terms(means3d, scales, quats, world_view, full_proj,
+                          tanfovx, tanfovy, width, height, scale_modifier)
+    zero = torch.zeros_like(e["z"])
+    T, C, M, R = e["T"], e["C"], e["M"], e["R"]
+    g_v = [zero, zero, zero]
+    g_s = torch.zeros_like(scales)
+    g_q = torch.zeros_like(quats)
+    if d_conics is not None:
+        gA, gB, gC = d_conics.unbind(1)
+        det_ok = e["det"] > 0
+        inv_det = 1.0 / torch.where(det_ok, e["det"], 1.0)
+        ga, gb, gc = gC * inv_det, -(gB * inv_det), gA * inv_det
+        g_inv = gA * e["c"] - gB * e["b"] + gC * e["a"]
+        g_det = torch.where(det_ok, -g_inv * (inv_det * inv_det), 0.0)
+        ga = ga + g_det * e["c"]
+        gc = gc + g_det * e["a"]
+        gb = gb - 2.0 * (g_det * e["b"])
+        CT = T @ C                    # rows (C T_r)^T, C symmetric
+        gT = torch.stack([2.0 * ga[:, None] * CT[:, 0] + gb[:, None] * CT[:, 1],
+                          gb[:, None] * CT[:, 0] + 2.0 * gc[:, None] * CT[:, 1]],
+                         1)
+        # d quad / d Sigma as a symmetric matrix counting each unique entry
+        # once: off-diagonal entries get both orders of the pair
+        T0, T1 = T[:, 0], T[:, 1]
+        outer = (ga[:, None, None] * T0[:, :, None] * T0[:, None, :]
+                 + gb[:, None, None] * 0.5 * (T0[:, :, None] * T1[:, None, :]
+                                              + T1[:, :, None] * T0[:, None, :])
+                 + gc[:, None, None] * T1[:, :, None] * T1[:, None, :])
+        gSigma = 2.0 * outer              # Gs: 2 gC_kk on the diagonal, gC_kl off it
+        gM = gSigma @ M
+        gR = gM * e["s"][:, None, :]
+        g_s = (gM * R).sum(1) * scale_modifier
+        w, x, y, z = e["q"].unbind(1)
+        r = gR.reshape(-1, 9).unbind(1)
+        g_q = 2.0 * torch.stack([
+            -z * r[1] + y * r[2] + z * r[3] - x * r[5] - y * r[6] + x * r[7],
+            y * r[1] + z * r[2] + y * r[3] - 2.0 * x * r[4] - w * r[5]
+            + z * r[6] + w * r[7] - 2.0 * x * r[8],
+            -2.0 * y * r[0] + x * r[1] + w * r[2] + x * r[3] + z * r[5]
+            - w * r[6] + z * r[7] - 2.0 * y * r[8],
+            -2.0 * z * r[0] - w * r[1] + x * r[2] + w * r[3] - 2.0 * z * r[4]
+            + y * r[5] + x * r[6] + y * r[7]], 1)
+        wv = world_view[:3, :3]
+        g_fxi = gT[:, 0] @ wv[:, 0]
+        g_gx = gT[:, 0] @ wv[:, 2]
+        g_fyi = gT[:, 1] @ wv[:, 1]
+        g_gy = gT[:, 1] @ wv[:, 2]
+        fx, fy, inv_z = e["fx"], e["fy"], e["inv_z"]
+        g_tx = g_gx * (-fx) * e["inv_z2"]
+        g_ty = g_gy * (-fy) * e["inv_z2"]
+        g_inv_z2 = g_gx * (-fx * e["tx"]) + g_gy * (-fy * e["ty"])
+        g_inv_z = g_fxi * fx + g_fyi * fy + 2.0 * (g_inv_z2 * inv_z)
+        g_safe_z = -g_inv_z * (inv_z * inv_z)
+        g_z = g_tx * e["cx"] + g_ty * e["cy"]
+        ux, uy, safe_z = e["ux"], e["uy"], e["safe_z"]
+        g_ux = torch.where((ux >= -e["lim_x"]) & (ux <= e["lim_x"]),
+                           g_tx * e["z"], 0.0)
+        g_uy = torch.where((uy >= -e["lim_y"]) & (uy <= e["lim_y"]),
+                           g_ty * e["z"], 0.0)
+        g_safe_z = (g_safe_z - g_ux * ((e["v"][:, 0] / safe_z) / safe_z)
+                    - g_uy * ((e["v"][:, 1] / safe_z) / safe_z))
+        g_z = g_z + torch.where(torch.abs(e["z"]) < 1e-6, 0.0, g_safe_z)
+        g_v = [g_ux / safe_z, g_uy / safe_z, g_z]
+    if d_depths is not None:
+        g_v[2] = g_v[2] + d_depths
+    g_clip = [zero, zero, zero, zero]
+    if d_means2d is not None:
+        g_p0 = d_means2d[:, 0] * (0.5 * width)
+        g_p1 = d_means2d[:, 1] * (0.5 * height)
+        pw, clip = e["pw"], e["clip"]
+        g_pw = g_p0 * clip[:, 0] + g_p1 * clip[:, 1]
+        g_clip = [g_p0 * pw, g_p1 * pw, zero, -g_pw * (pw * pw)]
+    g_means = (torch.stack(g_v, 1) @ world_view[:3, :3].T
+               + torch.stack(g_clip, 1) @ full_proj[:3, :].T)
+    return g_means, g_s, g_q

@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
-(the lane prefix sum), K4 (the forward's five stages) and K5/K6 (the slab
-transposes) against their plain versions, the codec's CDF rows against
-theirs, and the codec's round trip on the card.
+(the lane prefix sum), K4 (the forward's five stages), K5/K6 (the slab
+transposes) and the projection's three (forward, cull, backward) against
+their plain versions, the codec's CDF rows against theirs, and the codec's
+round trip on the card.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -27,6 +28,7 @@ from contextgs_tpu_torch.config import ModelConfig
 from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops import scan as tscan
+from contextgs_tpu_torch.ops.rasterize import projection as tproj
 from contextgs_tpu_torch.ops.rasterize import reference as tref
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
 from contextgs_tpu_torch.ops.rasterize.common import (ALPHA_EPS,
@@ -36,6 +38,8 @@ from contextgs_tpu_torch.ops.rasterize.common import (ALPHA_EPS,
 from contextgs_tpu_torch.scene.cameras import make_camera
 from contextgs_tpu_torch.scripts import kvariants as tkv
 from contextgs_tpu_torch.scripts import xpose_lab as txl
+
+import projection_cases
 
 torch.set_num_threads(1)
 
@@ -1431,3 +1435,166 @@ def test_codec_card_decode_launches_once_a_chunk(tmp_path, monkeypatch):
     tcodec.decode_scene(str(tmp_path), cfg)
     assert calls and all(torch.device(d).type == "cuda" for d in calls)
     assert tcdf.launches - before == len(calls)
+
+
+# ---- the projection's kernels ----
+
+# the scenes of the projection's card tests: every branch (48x32); a serve
+# view's gaussians (1237x822, 1M) and anchors (200k, scales a column slice
+# of [N,6] as the renderer's cull reads them); a training view's (980x545)
+PROJ_SCENES = {
+    "branch": lambda: projection_cases.branch_scene(),
+    "serve": lambda: projection_cases.volume_scene(1_000_000, 1237, 822, 1),
+    "train": lambda: projection_cases.volume_scene(400_000, 980, 545, 2),
+    "anchors": lambda: projection_cases.volume_scene(
+        200_000, 1237, 822, 3, scale_range=(0.001, 0.02)),
+}
+PROJ_BANDS = {"branch": (1, 3), "serve": (20, 17), "train": (10, 12),
+              "anchors": None}
+
+
+def _card_scene(case):
+    """The scene's tensors on the card, the camera as the renderer holds it
+    (the transposed arrays' strides kept)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    sc = PROJ_SCENES[case]()
+    dev = torch.device("cuda")
+    cam = sc["cam"]
+    put = lambda x: torch.as_tensor(x, device=dev)
+    return sc, dict(world_view=put(cam["world_view"]),
+                    full_proj=put(cam["full_proj"]),
+                    tanfovx=cam["tanfovx"], tanfovy=cam["tanfovy"],
+                    width=sc["width"], height=sc["height"]), put
+
+
+def _assert_same_projection(got, want, n):
+    """Floats within 2e-6 relative (or equal, NaN included), integers
+    equal."""
+    for name in ("means2d", "conics", "depths"):
+        a, b = getattr(got, name).cpu(), getattr(want, name).cpu()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        close = (a - b).abs() <= 2e-6 * b.abs()
+        assert bool((same | close).all()), \
+            f"{name}: {int((~(same | close)).sum())} of {n} off"
+    for name in ("radii", "rect_min", "rect_max", "n_tiles"):
+        a, b = getattr(got, name).cpu(), getattr(want, name).cpu()
+        off = int((a != b).reshape(n, -1).any(1).sum())
+        assert off == 0, f"{name}: {off} of {n} gaussians differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["opacities", "no_opacities", "band"])
+@pytest.mark.parametrize("case", ["branch", "serve", "train"])
+def test_projection_kernel_matches_plain_chain(case, variant):
+    """The projection kernel against the plain chain on the same card
+    inputs, in one launch."""
+    sc, geom, put = _card_scene(case)
+    n = len(sc["means"])
+    args = (put(sc["means"]), put(sc["scales"]), put(sc["quats"]),
+            geom["world_view"], geom["full_proj"], geom["tanfovx"],
+            geom["tanfovy"], geom["width"], geom["height"])
+    kw = dict(valid=put(sc["valid"]))
+    if variant != "no_opacities":
+        kw["opacities"] = put(sc["opac"])
+    if variant == "band":
+        kw["tile_band"] = PROJ_BANDS[case]
+    before = tproj.launches
+    got = trz.project_gaussians(*args, **kw)
+    assert tproj.launches == before + 1
+    want = tproj.project_gaussians_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert int((want.radii > 0).sum()) > (10 if case == "branch" else n // 10)
+    _assert_same_projection(got, want, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["branch", "anchors"])
+def test_cull_kernel_matches_plain_chain(case):
+    """visible_filter's kernel (the projection's cull mode) against the
+    plain chain, reading the scales as a column slice of [N,6]."""
+    sc, geom, put = _card_scene(case)
+    n = len(sc["means"])
+    scaling = torch.cat([put(sc["scales"]), put(sc["scales"])], 1)
+    args = (put(sc["means"]), scaling[:, :3], geom["world_view"],
+            geom["full_proj"], geom["tanfovx"], geom["tanfovy"],
+            geom["width"], geom["height"])
+    for valid in (None, put(sc["valid"])):
+        before = tproj.cull_launches
+        got = trz.visible_filter(*args, valid=valid)
+        assert tproj.cull_launches == before + 1
+        want = tproj.visible_filter_plain(*args, valid=valid)
+        torch.cuda.synchronize()
+        assert 0 < int(want.sum()) < n
+        assert int((got != want).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_depths", [False, True])
+@pytest.mark.parametrize("case", ["branch", "train"])
+def test_projection_backward_kernel_matches_autograd(case, with_depths):
+    """The backward kernel against autograd of the plain chain and against
+    reference.project_vjp_reference, with the cotangents as the rasterizer
+    hands them over (column slices of one [G, 9] gradient)."""
+    sc, geom, put = _card_scene(case)
+    n = len(sc["means"])
+    d_m, d_c, d_d = projection_cases.cotangents(n, 7)
+    cot = put(np.concatenate([d_m, d_c, d_d[:, None], np.zeros((n, 3),
+                                                              np.float32)],
+                             1))
+    if not with_depths:
+        cot[:, 5] = 0.0
+
+    def grads(project):
+        leaves = [put(sc[k]).requires_grad_()
+                  for k in ("means", "scales", "quats")]
+        proj = project(*leaves, geom["world_view"], geom["full_proj"],
+                       geom["tanfovx"], geom["tanfovy"], geom["width"],
+                       geom["height"], valid=put(sc["valid"]),
+                       opacities=put(sc["opac"]))
+        parts = [proj.means2d, proj.conics]
+        if with_depths:
+            parts.append(proj.depths[:, None])
+        rows = torch.cat(parts, 1)
+        return torch.autograd.grad((rows * cot[:, :rows.shape[1]]).sum(),
+                                   leaves)
+
+    before = tproj.backward_launches
+    got = grads(trz.project_gaussians)
+    assert tproj.backward_launches == before + 1
+    want = grads(tproj.project_gaussians_plain)
+    ref = tref.project_vjp_reference(
+        put(sc["means"]), put(sc["scales"]), put(sc["quats"]),
+        geom["world_view"], geom["full_proj"], geom["tanfovx"],
+        geom["tanfovy"], geom["width"], geom["height"], cot[:, :2],
+        cot[:, 2:5], cot[:, 5] if with_depths else None)
+    torch.cuda.synchronize()
+    assert projection_cases.grad_errors(got, want) == []
+    assert projection_cases.grad_errors(got, ref) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["dtype", "device", "columns", "valid"])
+def test_projection_kernel_wrapper_refuses_bad_inputs(fault):
+    """On a CUDA tensor the wrappers raise on what the kernels do not read,
+    and launch nothing."""
+    sc, geom, put = _card_scene("branch")
+    means, scales, quats = (put(sc[k]) for k in ("means", "scales", "quats"))
+    cam = [geom["world_view"], geom["full_proj"], geom["tanfovx"],
+           geom["tanfovy"], geom["width"], geom["height"]]
+    valid = put(sc["valid"])
+    if fault == "dtype":
+        scales = scales.double()
+    elif fault == "device":
+        cam[0] = cam[0].cpu()
+    elif fault == "columns":
+        quats = torch.cat([quats, quats], 1)[:, ::2]
+    else:
+        valid = valid.to(torch.int32)
+    counts = (tproj.launches, tproj.cull_launches)
+    with pytest.raises(ValueError):
+        trz.project_gaussians(means, scales, quats, *cam, valid=valid)
+    if fault != "columns":
+        with pytest.raises(ValueError):
+            trz.visible_filter(means, scales, *cam, valid=valid)
+    assert (tproj.launches, tproj.cull_launches) == counts

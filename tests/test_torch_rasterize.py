@@ -18,8 +18,11 @@ from contextgs_tpu.ops.rasterize.common import T_EPS
 from contextgs_tpu.ops.rasterize.reference import \
     blend_reference as jax_blend_reference
 from contextgs_tpu_torch.ops import rasterize as trz
+from contextgs_tpu_torch.ops.rasterize import projection as tproj
 from contextgs_tpu_torch.ops.rasterize import reference as tref
 
+from projection_cases import BRANCH_ROWS, branch_scene, grad_errors
+from projection_cases import cotangents as proj_cotangents
 from utils_synthetic import make_random_gaussians, make_test_camera
 
 torch.set_num_threads(1)
@@ -322,3 +325,154 @@ def test_rasterize_color_gradient_vs_finite_differences(rng):
         assert np.isclose(g[i, 0], fd, rtol=2e-2, atol=1e-3), \
             f"color[{i},0]: analytic {g[i, 0]} vs fd {fd}"
     assert np.abs(g).max() > 0
+
+
+def _branch_leaves(sc):
+    return [torch.from_numpy(sc[k]).requires_grad_()
+            for k in ("means", "scales", "quats")]
+
+
+def test_branch_scene_takes_every_branch():
+    """The scene of the VJP tests: each row in BRANCH_ROWS takes its branch
+    in the plain chain."""
+    sc = branch_scene()
+    cam = sc["cam"]
+    e = tref._projection_terms(*map(torch.from_numpy, (
+        sc["means"], sc["scales"], sc["quats"], cam["world_view"],
+        cam["full_proj"])), cam["tanfovx"], cam["tanfovy"], sc["width"],
+        sc["height"])
+    rows = BRANCH_ROWS
+    z, ux, uy = e["z"].numpy(), e["ux"].numpy(), e["uy"].numpy()
+    lim_x, lim_y = np.float32(e["lim_x"]), np.float32(e["lim_y"])
+    assert z[rows["behind"]] < 0 and 0 < z[rows["near"]] <= 0.2
+    assert abs(z[rows["at_zero"]]) < 1e-6
+    assert ux[3] > lim_x and ux[4] < -lim_x
+    assert uy[5] > lim_y and uy[6] < -lim_y
+    assert ux[7] == lim_x and ux[8] == -lim_x
+    assert (e["det"].numpy()[list(rows["needles"])] <= 0).all()
+    proj = tproj.project_gaussians_plain(
+        *map(torch.from_numpy, (sc["means"], sc["scales"], sc["quats"],
+                                cam["world_view"], cam["full_proj"])),
+        cam["tanfovx"], cam["tanfovy"], sc["width"], sc["height"],
+        valid=torch.from_numpy(sc["valid"]),
+        opacities=torch.from_numpy(sc["opac"]))
+    radii = proj.radii.numpy()
+    for r in ("behind", "near", "at_zero", "needles", "faint"):
+        assert (radii[np.r_[rows[r]]] == 0).all(), r
+    assert (radii[~sc["valid"]] == 0).all()
+    assert (radii > 0).sum() > 60
+
+
+@pytest.mark.parametrize("with_opacity,tile_band,with_depths", [
+    (False, None, True), (True, None, False), (False, (1, 1), False),
+    (True, (0, 1), True)])
+def test_project_vjp_reference_matches_autograd(with_opacity, tile_band,
+                                                with_depths):
+    """reference.project_vjp_reference against autograd of the plain chain
+    on every branch of branch_scene: the gradient is the same whatever the
+    opacities, valid and tile band (they only cull)."""
+    sc = branch_scene()
+    cam = sc["cam"]
+    wv, fp = _t(cam["world_view"]), _t(cam["full_proj"])
+    leaves = _branch_leaves(sc)
+    proj = tproj.project_gaussians_plain(
+        *leaves, wv, fp, cam["tanfovx"], cam["tanfovy"], sc["width"],
+        sc["height"], valid=_t(sc["valid"]),
+        opacities=_t(sc["opac"]) if with_opacity else None,
+        tile_band=tile_band)
+    d_m, d_c, d_d = map(lambda x: None if x is None else _t(x),
+                        proj_cotangents(len(sc["means"]), 5, with_depths))
+    loss = (proj.means2d * d_m).sum() + (proj.conics * d_c).sum()
+    if with_depths:
+        loss = loss + (proj.depths * d_d).sum()
+    want = torch.autograd.grad(loss, leaves)
+    got = tref.project_vjp_reference(
+        *(x.detach() for x in leaves), wv, fp, cam["tanfovx"],
+        cam["tanfovy"], sc["width"], sc["height"], d_m, d_c, d_d)
+    assert grad_errors(got, want, row_tol=1e-4) == []
+
+
+@pytest.mark.parametrize("scale_modifier", [1.0, 0.7])
+def test_project_vjp_reference_takes_missing_cotangents(scale_modifier):
+    """A cotangent autograd leaves out (None) contributes nothing, and the
+    scale modifier scales the scales' gradient as in the plain chain."""
+    sc = branch_scene(n=60, seed=3, scale_modifier=scale_modifier)
+    cam = sc["cam"]
+    wv, fp = _t(cam["world_view"]), _t(cam["full_proj"])
+    d_m, d_c = map(_t, proj_cotangents(60, 9, False)[:2])
+    for use in ("means2d", "conics"):
+        leaves = _branch_leaves(sc)
+        proj = tproj.project_gaussians_plain(
+            *leaves, wv, fp, cam["tanfovx"], cam["tanfovy"], sc["width"],
+            sc["height"], scale_modifier=scale_modifier)
+        out, cot = ((proj.means2d, d_m) if use == "means2d"
+                    else (proj.conics, d_c))
+        want = torch.autograd.grad((out * cot).sum(), leaves,
+                                   allow_unused=True)
+        want = [torch.zeros_like(x) if w is None else w
+                for x, w in zip(leaves, want)]
+        got = tref.project_vjp_reference(
+            *(x.detach() for x in leaves), wv, fp, cam["tanfovx"],
+            cam["tanfovy"], sc["width"], sc["height"],
+            d_m if use == "means2d" else None,
+            d_c if use == "conics" else None, None,
+            scale_modifier=scale_modifier)
+        if use == "means2d":
+            assert not got[1].any() and not got[2].any()
+            np.testing.assert_allclose(got[0].numpy(), want[0].numpy(),
+                                       rtol=1e-5, atol=0)
+        else:
+            assert grad_errors(got, want, row_tol=1e-4) == []
+
+
+def test_projection_cpu_takes_plain_version():
+    """On CPU tensors project_gaussians and visible_filter are the plain
+    chain itself: no launch, the same outputs bit for bit."""
+    sc = branch_scene(n=80, seed=4)
+    cam = sc["cam"]
+    args = (*map(_t, (sc["means"], sc["scales"], sc["quats"],
+                      cam["world_view"], cam["full_proj"])), cam["tanfovx"],
+            cam["tanfovy"], sc["width"], sc["height"])
+    counts = (tproj.launches, tproj.cull_launches, tproj.backward_launches)
+    kw = dict(valid=_t(sc["valid"]), opacities=_t(sc["opac"]),
+              tile_band=(1, 1))
+    got, want = (f(*args, **kw) for f in (trz.project_gaussians,
+                                          tproj.project_gaussians_plain))
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+    cull = (args[0], args[1], *args[3:])
+    assert torch.equal(trz.visible_filter(*cull, valid=_t(sc["valid"])),
+                       tproj.visible_filter_plain(*cull,
+                                                  valid=_t(sc["valid"])))
+    assert (tproj.launches, tproj.cull_launches,
+            tproj.backward_launches) == counts
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "columns", "camera",
+                                   "valid_dtype", "device", "camera_grad"])
+def test_projection_kernel_args_refuse_bad_inputs(fault):
+    """The kernels' argument check (run before every launch) raises on a
+    dtype, shape, layout or device the kernels do not read."""
+    sc = branch_scene(n=40, seed=6)
+    cam = sc["cam"]
+    args = dict(means3d=_t(sc["means"]), scales=_t(sc["scales"]),
+                quats=_t(sc["quats"]), opacities=_t(sc["opac"]),
+                valid=_t(sc["valid"]), world_view=_t(cam["world_view"]),
+                full_proj=_t(cam["full_proj"]))
+    tproj._forward_args(**args)
+    if fault == "dtype":
+        args["scales"] = args["scales"].double()
+    elif fault == "shape":
+        args["quats"] = args["quats"][:, :3]
+    elif fault == "columns":
+        args["means3d"] = torch.zeros(40, 6)[:, ::2]
+    elif fault == "camera":
+        args["world_view"] = args["world_view"][:3]
+    elif fault == "valid_dtype":
+        args["valid"] = args["valid"].to(torch.uint8)
+    elif fault == "device":
+        args["opacities"] = args["opacities"].to("meta")
+    else:
+        args["full_proj"] = args["full_proj"].requires_grad_()
+    with pytest.raises(ValueError):
+        tproj._forward_args(**args)

@@ -20,8 +20,6 @@ import os
 import re
 import sys
 
-import torch
-
 from contextgs_tpu_torch import drivers
 from contextgs_tpu_torch import evaluation as ev
 from contextgs_tpu_torch.compression.codec import decode_scene, encode_scene
@@ -58,13 +56,8 @@ def main(argv=None) -> int:
             return 1
         log.info("loading %s", ckpt_path)
         scene = drivers.scene_of(cfg, args.source_path)
-        # a like-structured model to load into: the checkpoint replaces its
-        # anchor pool, so ten points are enough
-        model0, _ = st.init_scene_model(
-            scene.points[:10], cfg.model,
-            generator=torch.Generator().manual_seed(0), device=dev)
-        params, buffers, _, meta = load_checkpoint(ckpt_path, model0.params,
-                                                   dev)
+        params, buffers, _, meta = load_checkpoint(
+            ckpt_path, st.blank_params(cfg.model, device=dev), dev)
 
         out_dir = os.path.join(args.model_path, "bitstreams")
         bits = encode_scene(params, buffers, cfg.model, meta["level_scales"],

@@ -135,6 +135,37 @@ def voxelize_points(points: np.ndarray, voxel_size: float) -> np.ndarray:
     return np.unique(np.round(points / voxel_size), axis=0) * voxel_size
 
 
+def blank_params(cfg: ModelConfig, capacity: int = 0,
+                 generator: torch.Generator | None = None,
+                 device=None) -> Params:
+    """Params of `capacity` empty anchor slots (zeros, the identity
+    rotation, the frozen opacity) and the MLPs and the prior of `cfg`, drawn
+    in that order from `generator` (a CPU `torch.Generator`). With no slots
+    they are the structure a checkpoint loads into
+    (`utils/checkpoint.load_checkpoint`), built without a point cloud."""
+    dev = resolve_device(device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    f, k_off = cfg.feat_dim, cfg.n_offsets
+    rotation = zeros(capacity, 4)
+    rotation[:, 0] = 1.0
+    return Params(
+        anchor=zeros(capacity, 3),
+        anchor_feat=zeros(capacity, f),
+        hyper_latent=zeros(capacity, cfg.hyper_dim),
+        offsets=zeros(capacity, k_off, 3),
+        mask_logit=zeros(capacity, k_off),
+        scaling_log=zeros(capacity, 6),
+        rotation=rotation,
+        opacity_raw=torch.full((capacity, 1), float(np.log(0.1 / 0.9)),
+                               dtype=torch.float32, device=dev),
+        mlps=init_decoder_mlps(cfg, generator, dev),
+        prior=init_factorized_prior(cfg.hyper_dim, generator, dev),
+    )
+
+
 def init_scene_model(points: np.ndarray, cfg: ModelConfig,
                      capacity: int | None = None,
                      generator: torch.Generator | None = None,
@@ -160,33 +191,16 @@ def init_scene_model(points: np.ndarray, cfg: ModelConfig,
     dist2 = np.maximum(mean_knn_sq_dist(pts), 1e-7)
     scales0 = np.log(np.sqrt(dist2))[:, None].repeat(6, axis=1)
 
-    def pad(x, fill=0.0):
-        out = np.full((capacity,) + x.shape[1:], fill, dtype=np.float32)
-        out[:n] = x
-        return torch.from_numpy(out).to(dev)
+    params = blank_params(cfg, capacity, generator, dev)
+    params.anchor[:n] = torch.from_numpy(pts.astype(np.float32))
+    params.scaling_log[:n] = torch.from_numpy(scales0.astype(np.float32))
+    params.mask_logit[:n] = 1.0
+    alive = torch.arange(capacity, device=dev) < n
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
-    f, k_off = cfg.feat_dim, cfg.n_offsets
-    mask_logit = zeros(capacity, k_off)
-    mask_logit[:n] = 1.0
-    rotation = zeros(capacity, 4)
-    rotation[:, 0] = 1.0
-    params = Params(
-        anchor=pad(pts.astype(np.float32)),
-        anchor_feat=zeros(capacity, f),
-        hyper_latent=zeros(capacity, cfg.hyper_dim),
-        offsets=zeros(capacity, k_off, 3),
-        mask_logit=mask_logit,
-        scaling_log=pad(scales0),
-        rotation=rotation,
-        opacity_raw=torch.full((capacity, 1), float(np.log(0.1 / 0.9)),
-                               dtype=torch.float32, device=dev),
-        mlps=init_decoder_mlps(cfg, generator, dev),
-        prior=init_factorized_prior(cfg.hyper_dim, generator, dev),
-    )
-    alive = torch.arange(capacity, device=dev) < n
+    k_off = cfg.n_offsets
     buffers = Buffers(
         alive=alive,
         bound_min=zeros(1, 3),

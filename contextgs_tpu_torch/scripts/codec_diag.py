@@ -28,9 +28,6 @@ import json
 import sys
 import tempfile
 
-import numpy as np
-import torch
-
 from contextgs_tpu_torch import drivers
 from contextgs_tpu_torch.compression.codec import encode_scene
 from contextgs_tpu_torch.device import resolve_device
@@ -50,13 +47,8 @@ def audit(model_path: str, checkpoint: str | None = None,
     ckpt_path = checkpoint or newest_checkpoint(model_path)
     if ckpt_path is None:
         raise FileNotFoundError(f"no checkpoint in {model_path}")
-    # a like-structured model to load into: the checkpoint replaces its
-    # anchor pool, so ten points are enough
-    pts = np.random.default_rng(0).uniform(-1, 1, (10, 3))
-    model0, _ = st.init_scene_model(
-        pts, cfg.model, generator=torch.Generator().manual_seed(0),
-        device=dev)
-    params, buffers, _, meta = load_checkpoint(ckpt_path, model0.params, dev)
+    params, buffers, _, meta = load_checkpoint(
+        ckpt_path, st.blank_params(cfg.model, device=dev), dev)
     stats: dict = {}
     with tempfile.TemporaryDirectory() as td:
         bits = encode_scene(params, buffers, cfg.model, meta["level_scales"],

@@ -1,12 +1,16 @@
 """Host-side training orchestration (port of `contextgs_tpu/train/loop.py`).
 
-Random camera order from a numpy Generator, the per-phase schedule (plain,
-noise, context), densification every `update_interval` steps inside
-(update_from, update_until) except in [3000, 4000), pool growth when
-densification runs out of free slots, the anchor-bound refresh and the
-level-scale search at the context transition, the model's size estimate
-every 2000 context steps, the `test_iterations` evaluation, logging,
-checkpoints and resume.
+`run_schedule` is the schedule of a run, for `train` here and for
+`train/sharded_loop.train_sharded`: random camera order from a numpy
+Generator, the per-phase schedule (plain, noise, context), the anchor-bound
+refresh and the level-scale search at the context transition
+(`context_transition`), densification every `update_interval` steps inside
+(update_from, update_until) except in [3000, 4000), logging, checkpoints
+(`save_state`). A `Run` does each event on its state; this module's, on one
+device, also grows the pool when densification runs out of free slots,
+evaluates at `test_iterations` and logs the model's size estimate every
+2000 context steps. `start_state` builds a run's state from the scene's
+points, or resumes from a checkpoint of either loop or of the JAX package.
 
 The reference's static-shape machinery — the instance budget, `vis_cap` and
 their watermark adaptation — has no counterpart: the port's shapes are
@@ -32,7 +36,7 @@ from contextgs_tpu_torch.models import densify, state as st
 from contextgs_tpu_torch.models.context import estimate_total_bits
 from contextgs_tpu_torch.models.levels import find_divide_scale
 from contextgs_tpu_torch.models.mlps import count_mlp_params
-from contextgs_tpu_torch.models.state import Buffers, SceneModel
+from contextgs_tpu_torch.models.state import Buffers, Params, SceneModel
 from contextgs_tpu_torch.ops.ssim import psnr as psnr_fn
 from contextgs_tpu_torch.scene.dataset_readers import SceneInfo
 from contextgs_tpu_torch.scene.snapshot import save_model_ply, save_networks
@@ -115,38 +119,247 @@ def grow_capacity(model: SceneModel, adam: AdamState,
     return SceneModel(params, buffers), adam
 
 
-def _densify_round(ts: TrainerState, cfg: TrainConfig,
-                   it: int) -> SceneModel:
-    """One densification round on `ts` (its model and Adam state replaced),
-    the pool doubled where the round ran out of free slots; its counts
-    come back to the host in one read."""
-    model = ts.model
-    res = densify.adjust_anchors(model.params, model.buffers, ts.adam,
-                                 cfg.model, cfg.opt, ts.voxel_size,
-                                 ts.generator)
-    ts.model = model = SceneModel(res.params, res.buffers)
-    ts.adam = res.adam
+def densify_counts(res, *more) -> list:
+    """A densification round's counts (grown, pruned, whether it ran out
+    of free slots), then the int64 scalars `more`, read back in one
+    wait."""
     with trace.sync("densify.counts"):
-        grown, pruned, alive, overflowed = torch.stack([
-            res.n_grown, res.n_pruned, model.buffers.alive.sum(),
-            res.overflowed.to(torch.int64)]).tolist()
-    trace.count("anchors_grown", grown)
-    trace.count("anchors_pruned", pruned)
-    log.info("iter %d densify: grown %d, pruned %d, anchors %d", it, grown,
-             pruned, alive)
-    if overflowed:
-        with trace.span("train/pool_grow"):
-            cap = model.buffers.alive.shape[0] * 2
-            log.warning("anchor pool full at iter %d → growing to %d", it,
-                        cap)
-            model, ts.adam = grow_capacity(model, ts.adam, cap)
-            ts.model = model
-    return model
+        counts = torch.stack([res.n_grown, res.n_pruned,
+                              res.overflowed.to(torch.int64), *more]).tolist()
+    trace.count("anchors_grown", counts[0])
+    trace.count("anchors_pruned", counts[1])
+    return counts
 
 
 def _to_image(cam, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(
         np.transpose(cam.image, (2, 0, 1)))).to(dev)
+
+
+def start_state(cfg: TrainConfig, scene: SceneInfo, device,
+                generator: torch.Generator, rank: int = 0,
+                world: int = 1) -> tuple[TrainerState, list]:
+    """A run's first state on `device` and its pending camera order: from
+    the scene's points, or from `cfg.start_checkpoint` (either loop's or
+    the JAX package's) read into a structure built from the config alone.
+    Rank `rank` of `world` takes the checkpoint's `generator_state` (one
+    process) or `generator_states[rank]` (as many ranks); else, and from a
+    JAX checkpoint, `generator` keeps its seed."""
+    ts = TrainerState(model=None, adam=None, voxel_size=cfg.model.voxel_size,
+                      spatial_lr_scale=scene.radius, generator=generator,
+                      rng=np.random.default_rng(cfg.seed))
+    if not cfg.start_checkpoint:
+        ts.model, ts.voxel_size = st.init_scene_model(
+            scene.points, cfg.model,
+            generator=torch.Generator().manual_seed(cfg.seed), device=device)
+        ts.adam = init_adam(ts.model.params)
+        return ts, []
+    params, buffers, ts.adam, meta = load_checkpoint(
+        cfg.start_checkpoint, st.blank_params(cfg.model, device=device),
+        device)
+    ts.model = SceneModel(params, buffers)
+    ts.voxel_size = meta["voxel_size"]
+    ts.level_scales = meta["level_scales"]
+    ts.spatial_lr_scale = meta["spatial_lr_scale"]
+    ts.iteration = meta["iteration"]
+    ts.rng.bit_generator.state = meta["rng_state"]
+    states = ([meta.get("generator_state")] if world == 1
+              else meta.get("generator_states") or [])
+    if len(states) == world and states[rank] is not None:
+        generator.set_state(states[rank])
+    log.info("resumed from %s at iteration %d", cfg.start_checkpoint,
+             ts.iteration)
+    return ts, list(meta["cam_order"])
+
+
+def context_transition(params: Params, buffers: Buffers, ts: TrainerState,
+                       cfg: TrainConfig) -> Buffers:
+    """The context transition on a whole model: its anchor bounds
+    refreshed, and once a run (a resume past it keeps the checkpoint's) the
+    level scales searched over the kept anchors."""
+    buffers = st.update_anchor_bound(buffers, params.anchor, buffers.alive)
+    if ts.level_scales is None:
+        kept = st.get_mask_anchor(params, buffers.alive)
+        ts.level_scales = find_divide_scale(
+            params.anchor[kept].cpu().numpy(), ts.voxel_size,
+            buffers.bound_min.cpu().numpy(), buffers.bound_max.cpu().numpy(),
+            cfg.model.target_ratio, cfg.model.level_num)
+        log.info("level scales: %s", ts.level_scales)
+    return buffers
+
+
+def save_state(cfg: TrainConfig, ts: TrainerState, it: int, params: Params,
+               buffers: Buffers, adam: AdamState, order: list,
+               snapshot: bool, **meta) -> None:
+    """The training checkpoint `chkpnt{it}.pt` of a whole state, `meta`
+    added to its meta, and with `snapshot` the model snapshot
+    `point_cloud/iteration_{it}/{point_cloud.ply, checkpoint.pth}` (ref
+    scene/__init__.py:98-101), distinct from the checkpoint."""
+    os.makedirs(cfg.model_path, exist_ok=True)
+    save_checkpoint(
+        os.path.join(cfg.model_path, f"chkpnt{it}.pt"), params, buffers,
+        adam, dict(iteration=it, voxel_size=ts.voxel_size,
+                   level_scales=ts.level_scales,
+                   spatial_lr_scale=ts.spatial_lr_scale,
+                   rng_state=ts.rng.bit_generator.state,
+                   generator_state=ts.generator.get_state(),
+                   cam_order=list(order), **meta))
+    if snapshot:
+        pc_dir = os.path.join(cfg.model_path, "point_cloud",
+                              f"iteration_{it}")
+        save_model_ply(os.path.join(pc_dir, "point_cloud.ply"), params,
+                       buffers)
+        save_networks(
+            os.path.join(pc_dir, "checkpoint.pth"), params,
+            extra=dict(bound_min=buffers.bound_min.cpu().numpy(),
+                       bound_max=buffers.bound_max.cpu().numpy(),
+                       level_scales=ts.level_scales,
+                       voxel_size=ts.voxel_size, iteration=it))
+
+
+class Run:
+    """What a run does at each event of `run_schedule`, on the model in
+    `ts`: this class on one device, `sharded_loop._Rank` on a rank's slab.
+    It holds the views of the scene's training cameras on `device` and
+    the step functions' other inputs."""
+
+    def __init__(self, cfg: TrainConfig, scene: SceneInfo, ts: TrainerState,
+                 device):
+        self.cfg, self.ts, self.device = cfg, ts, device
+        self.cams = scene.train_cameras
+        self.test_cameras = scene.test_cameras
+        self.cam_dicts = [c.as_device_dict() for c in self.cams]
+        self.gts = [_to_image(c, device) for c in self.cams]
+        self.bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
+                               else [0.0, 0.0, 0.0], dtype=torch.float32,
+                               device=device)
+        self.eval_fns: dict = {}
+
+    def make_step(self, phase: str, width: int, height: int):
+        """The step function of `phase` at a view size."""
+        ts = self.ts
+        return make_train_step(self.cfg, width, height, phase,
+                               ts.spatial_lr_scale,
+                               level_scales=ts.level_scales or (),
+                               voxel_size=ts.voxel_size)
+
+    def step(self, fn, ci: int, it: int, with_stats: bool):
+        """Step `it` on training camera `ci` by `fn`; → its metrics."""
+        ts = self.ts
+        params, buffers, ts.adam, metrics = fn(
+            ts.model.params, ts.model.buffers, ts.adam, self.cam_dicts[ci],
+            self.gts[ci], self.bg, it, with_stats, ts.generator)
+        ts.model = SceneModel(params, buffers)
+        return metrics
+
+    def enter_context(self) -> None:
+        m = self.ts.model
+        self.ts.model = SceneModel(m.params, context_transition(
+            m.params, m.buffers, self.ts, self.cfg))
+        self.eval_fns.clear()
+
+    def densify(self, it: int) -> None:
+        """A round on the model and Adam state in `ts`, the pool doubled
+        where it ran out of free slots."""
+        ts, cfg = self.ts, self.cfg
+        res = densify.adjust_anchors(*ts.model, ts.adam, cfg.model, cfg.opt,
+                                     ts.voxel_size, ts.generator)
+        ts.model = model = SceneModel(res.params, res.buffers)
+        ts.adam = res.adam
+        grown, pruned, overflowed, alive = densify_counts(
+            res, model.buffers.alive.sum())
+        log.info("iter %d densify: grown %d, pruned %d, anchors %d", it,
+                 grown, pruned, alive)
+        if overflowed:
+            with trace.span("train/pool_grow"):
+                cap = model.buffers.alive.shape[0] * 2
+                log.warning("anchor pool full at iter %d → growing to %d",
+                            it, cap)
+                ts.model, ts.adam = grow_capacity(model, ts.adam, cap)
+
+    def report(self, it: int, phase: str, metrics) -> None:
+        """After step `it` and its densification round: nothing here."""
+
+    def evaluate(self, it: int, phase: str) -> None:
+        """After the callback: the test cameras at `test_iterations`, the
+        model's size estimate every 2000 context steps."""
+        cfg, ts, dev = self.cfg, self.ts, self.device
+        if it in cfg.test_iterations and self.test_cameras:
+            # eval noise from its own generator: enabling test_iterations
+            # does not perturb the training draws
+            gen = torch.Generator(dev).manual_seed(EVAL_SEED * 100_003 + it)
+            psnrs = []
+            for c in self.test_cameras:
+                ek = (phase, c.width, c.height)
+                if ek not in self.eval_fns:
+                    self.eval_fns[ek] = make_eval_render(
+                        cfg, c.width, c.height, phase,
+                        level_scales=ts.level_scales or (),
+                        voxel_size=ts.voxel_size)
+                img = self.eval_fns[ek](ts.model.params, ts.model.buffers,
+                                        c.as_device_dict(), self.bg, gen)
+                psnrs.append(float(psnr_fn(img, _to_image(c, dev))))
+            log.info("iter %d test [%s]: PSNR %.3f over %d views", it, phase,
+                     float(np.mean(psnrs)), len(psnrs))
+        if phase == "context" and it % 2000 == 0:
+            log.info("iter %d size estimate: %s", it,
+                     estimate_bits(ts.model, cfg, ts))
+
+    def n_alive(self) -> int:
+        return st.n_alive(self.ts.model)
+
+    def save(self, it: int, order: list, snapshot: bool) -> None:
+        ts = self.ts
+        save_state(self.cfg, ts, it, *ts.model, ts.adam, order, snapshot)
+
+
+def run_schedule(cfg: TrainConfig, ts: TrainerState, run: Run, order: list,
+                 callback=None) -> None:
+    """Steps `ts.iteration + 1` through `cfg.opt.iterations`, `order` the
+    cameras pending. A step takes the next camera of a random order from
+    `ts.rng`, in the phase `phase_of` names, with the statistics inside
+    (start_stat, update_until), and is followed, in order, by a
+    densification round, `run.report`, `callback(it, ts, metrics)`,
+    `run.evaluate`, the log line and the checkpoint (and snapshot)."""
+    opt = cfg.opt
+    cams = run.cams
+    step_fns: dict = {}
+    t_start = time.time()
+    for it in range(ts.iteration + 1, opt.iterations + 1):
+        ts.iteration = it
+        phase = phase_of(it, cfg)
+        if it == opt.context_from + 1:
+            run.enter_context()
+            step_fns.clear()
+        if not order:
+            order = [int(i) for i in ts.rng.permutation(len(cams))]
+        ci = order.pop()
+
+        key = (phase, cams[ci].width, cams[ci].height)
+        if key not in step_fns:
+            step_fns[key] = run.make_step(*key)
+        metrics = run.step(step_fns[key], ci, it,
+                           opt.start_stat < it < opt.update_until)
+        if (opt.update_from < it < opt.update_until
+                and it % opt.update_interval == 0
+                and not (3000 <= it < 4000)):
+            with trace.span("train/densify"):
+                run.densify(it)
+        run.report(it, phase, metrics)
+
+        if callback is not None:
+            callback(it, ts, metrics)
+        run.evaluate(it, phase)
+        if it % cfg.log_every == 0:
+            with trace.sync("log", 4):
+                logged = (float(metrics.loss), float(metrics.psnr),
+                          float(metrics.bit_per_param), run.n_alive())
+            log.info("iter %d [%s]: loss=%.5f psnr=%.2f bpp=%.4f anchors=%d",
+                     it, phase, *logged)
+        if ((it in cfg.checkpoint_iterations or it in cfg.save_iterations)
+                and cfg.model_path):
+            run.save(it, order, it in cfg.save_iterations)
+    log.info("training done in %.1fs", time.time() - t_start)
 
 
 def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
@@ -155,135 +368,10 @@ def train(cfg: TrainConfig, scene: SceneInfo, *, device=None,
     the final trainer state. `callback(it, ts, metrics)` runs after every
     step."""
     dev = resolve_device(device)
-    opt = cfg.opt
-    model, voxel_size = st.init_scene_model(
-        scene.points, cfg.model,
-        generator=torch.Generator().manual_seed(cfg.seed), device=dev)
-    ts = TrainerState(model=model, adam=init_adam(model.params),
-                      voxel_size=voxel_size, spatial_lr_scale=scene.radius,
-                      generator=torch.Generator(dev).manual_seed(cfg.seed),
-                      rng=np.random.default_rng(cfg.seed))
-    order: list = []
-    if cfg.start_checkpoint:
-        params, buffers, ts.adam, meta = load_checkpoint(
-            cfg.start_checkpoint, model.params, dev)
-        ts.model = model = SceneModel(params, buffers)
-        ts.voxel_size = meta["voxel_size"]
-        ts.level_scales = meta["level_scales"]
-        ts.spatial_lr_scale = meta["spatial_lr_scale"]
-        ts.iteration = meta["iteration"]
-        ts.rng.bit_generator.state = meta["rng_state"]
-        if "generator_state" in meta:      # absent from a JAX checkpoint
-            ts.generator.set_state(meta["generator_state"])
-        order = list(meta["cam_order"])
-        log.info("resumed from %s at iteration %d", cfg.start_checkpoint,
-                 ts.iteration)
+    ts, order = start_state(cfg, scene, dev,
+                            torch.Generator(dev).manual_seed(cfg.seed))
     log.info("init: %d anchors (capacity %d), voxel_size=%.6f",
-             st.n_alive(model), model.buffers.alive.shape[0], ts.voxel_size)
-
-    cams = scene.train_cameras
-    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.model.white_background
-                      else [0.0, 0.0, 0.0], dtype=torch.float32, device=dev)
-    cam_dicts = [c.as_device_dict() for c in cams]
-    gts = [_to_image(c, dev) for c in cams]
-    step_fns: dict = {}
-    eval_fns: dict = {}
-
-    t_start = time.time()
-    for it in range(ts.iteration + 1, opt.iterations + 1):
-        ts.iteration = it
-        phase = phase_of(it, cfg)
-        if it == opt.context_from + 1:
-            # the context transition: refresh the anchor bounds, search the
-            # level scales once over the kept anchors
-            model = ts.model = SceneModel(model.params, st.update_anchor_bound(
-                model.buffers, model.params.anchor, model.buffers.alive))
-            if ts.level_scales is None:
-                kept = st.get_mask_anchor(model.params, model.buffers.alive)
-                ts.level_scales = find_divide_scale(
-                    model.params.anchor[kept].cpu().numpy(), ts.voxel_size,
-                    model.buffers.bound_min.cpu().numpy(),
-                    model.buffers.bound_max.cpu().numpy(),
-                    cfg.model.target_ratio, cfg.model.level_num)
-                log.info("level scales: %s", ts.level_scales)
-            step_fns.clear()
-            eval_fns.clear()
-        if not order:
-            order = [int(i) for i in ts.rng.permutation(len(cams))]
-        ci = order.pop()
-
-        lk = (phase, cams[ci].width, cams[ci].height)
-        if lk not in step_fns:
-            step_fns[lk] = make_train_step(
-                cfg, lk[1], lk[2], phase, ts.spatial_lr_scale,
-                level_scales=ts.level_scales or (), voxel_size=ts.voxel_size)
-        params, buffers, adam, metrics = step_fns[lk](
-            model.params, model.buffers, ts.adam, cam_dicts[ci], gts[ci], bg,
-            it, opt.start_stat < it < opt.update_until, ts.generator)
-        ts.model = model = SceneModel(params, buffers)
-        ts.adam = adam
-
-        if (opt.update_from < it < opt.update_until
-                and it % opt.update_interval == 0
-                and not (3000 <= it < 4000)):
-            with trace.span("train/densify"):
-                model = _densify_round(ts, cfg, it)
-
-        if callback is not None:
-            callback(it, ts, metrics)
-        if it in cfg.test_iterations and scene.test_cameras:
-            # eval noise from its own generator: enabling test_iterations
-            # does not perturb the training draws
-            gen = torch.Generator(dev).manual_seed(EVAL_SEED * 100_003 + it)
-            psnrs = []
-            for c in scene.test_cameras:
-                ek = (phase, c.width, c.height)
-                if ek not in eval_fns:
-                    eval_fns[ek] = make_eval_render(
-                        cfg, c.width, c.height, phase,
-                        level_scales=ts.level_scales or (),
-                        voxel_size=ts.voxel_size)
-                img = eval_fns[ek](model.params, model.buffers,
-                                   c.as_device_dict(), bg, gen)
-                psnrs.append(float(psnr_fn(img, _to_image(c, dev))))
-            log.info("iter %d test [%s]: PSNR %.3f over %d views", it, phase,
-                     float(np.mean(psnrs)), len(psnrs))
-        if it % cfg.log_every == 0:
-            with trace.sync("log", 4):
-                logged = (float(metrics.loss), float(metrics.psnr),
-                          float(metrics.bit_per_param), st.n_alive(model))
-            log.info("iter %d [%s]: loss=%.5f psnr=%.2f bpp=%.4f anchors=%d",
-                     it, phase, *logged)
-        if phase == "context" and it % 2000 == 0:
-            log.info("iter %d size estimate: %s", it,
-                     estimate_bits(model, cfg, ts))
-
-        if ((it in cfg.checkpoint_iterations or it in cfg.save_iterations)
-                and cfg.model_path):
-            os.makedirs(cfg.model_path, exist_ok=True)
-            save_checkpoint(
-                os.path.join(cfg.model_path, f"chkpnt{it}.pt"), model.params,
-                model.buffers, ts.adam,
-                dict(iteration=it, voxel_size=ts.voxel_size,
-                     level_scales=ts.level_scales,
-                     spatial_lr_scale=ts.spatial_lr_scale,
-                     rng_state=ts.rng.bit_generator.state,
-                     generator_state=ts.generator.get_state(),
-                     cam_order=list(order)))
-        if it in cfg.save_iterations and cfg.model_path:
-            # the model snapshot (ref scene/__init__.py:98-101), distinct
-            # from the training checkpoint
-            pc_dir = os.path.join(cfg.model_path, "point_cloud",
-                                  f"iteration_{it}")
-            save_model_ply(os.path.join(pc_dir, "point_cloud.ply"),
-                           model.params, model.buffers)
-            save_networks(
-                os.path.join(pc_dir, "checkpoint.pth"), model.params,
-                extra=dict(
-                    bound_min=model.buffers.bound_min.cpu().numpy(),
-                    bound_max=model.buffers.bound_max.cpu().numpy(),
-                    level_scales=ts.level_scales,
-                    voxel_size=ts.voxel_size, iteration=it))
-
-    log.info("training done in %.1fs", time.time() - t_start)
+             st.n_alive(ts.model), ts.model.buffers.alive.shape[0],
+             ts.voxel_size)
+    run_schedule(cfg, ts, Run(cfg, scene, ts, dev), order, callback)
     return ts

@@ -4,7 +4,8 @@ conftest's virtual CPU devices (reference backend) and against the port's
 single-process step: the banded rasterize, the tree roots and the reshard,
 one sharded step (plain, and context with the JAX package's per-shard draws
 handed in), a sharded densify from a matched state, a run through a
-densify, and `drivers.train --mesh 2 --mesh_force_cpu`.
+densify, `drivers.train --mesh 2 --mesh_force_cpu`, and each loop resuming
+the other's checkpoint.
 
 The ranks are processes of their own (`comm.spawn`), each joined with a
 timeout; their rendezvous is a file in a temporary directory, so
@@ -575,6 +576,54 @@ def test_train_driver_mesh_on_the_cpu(tmp_path):
     for name in ("decoded", "ours_from_ckpt"):
         for k in ("PSNR", "SSIM"):
             assert res[name][k] == res["ours"][k], (name, k)
+
+
+@pytest.mark.parametrize("writer", ["sharded", "single"])
+def test_either_loop_resumes_the_others_checkpoint(tmp_path, writer):
+    """A checkpoint at step 4 (the first context step, one of the 5
+    cameras pending) of one loop, 2 CPU ranks or one process, resumed by
+    the other to step 8: the resumed steps' losses are finite, and the
+    resumed run's checkpoint at 8 holds the iteration, the level scales,
+    the pending camera order and the camera RNG state of the writer's own
+    checkpoint at 8."""
+    from contextgs_tpu_torch.scene.dataset_readers import load_scene
+    from contextgs_tpu_torch.scripts import make_synth_scene
+    from contextgs_tpu_torch.train import loop
+    root = tmp_path / "scene"
+    assert make_synth_scene.main(["--out", str(root), *SCENE]) == 0
+    scene = load_scene(str(root))
+    opt = tcfg.OptimizationConfig(iterations=8, noise_from=2, context_from=3,
+                                  update_from=100)
+    model = tcfg.ModelConfig(**MODEL_KW)
+
+    def run(loop_name, model_path, checkpoints, start=""):
+        cfg = tcfg.TrainConfig(model=model, opt=opt, model_path=model_path,
+                               checkpoint_iterations=checkpoints,
+                               save_iterations=(), start_checkpoint=start,
+                               log_every=1000)
+        if loop_name == "sharded":
+            ts = train_sharded(cfg, scene, 2, device="cpu", timeout=TIMEOUT)
+            return [s["loss"] for s in ts.ranks[0]["steps"]]
+        losses = []
+        loop.train(cfg, scene, device="cpu",
+                   callback=lambda it, ts, m: losses.append(float(m.loss)))
+        return losses
+
+    reader = "single" if writer == "sharded" else "sharded"
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert len(run(writer, str(a), (4, 8))) == 8
+    losses = run(reader, str(b), (8,), start=str(a / "chkpnt4.pt"))
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    want, got = (torch.load(path / "chkpnt8.pt", weights_only=False)["meta"]
+                 for path in (a, b))
+    assert got["iteration"] == want["iteration"] == 8
+    assert got["level_scales"] == want["level_scales"] is not None
+    assert len(want["level_scales"]) == model.level_num - 1
+    assert len(scene.train_cameras) == 5
+    assert got["cam_order"] == want["cam_order"]
+    assert len(got["cam_order"]) == 2
+    assert got["rng_state"] == want["rng_state"]
+    assert ("n_devices" in got) == (reader == "sharded")
 
 
 def test_mesh_without_cards_raises(tmp_path, monkeypatch):

@@ -5,6 +5,7 @@ resume, evaluation) on a tiny synthetic scene (CPU)."""
 
 import functools
 import logging
+import types
 
 import jax
 import jax.numpy as jnp
@@ -448,6 +449,171 @@ def test_resume_matches_continuous_run(tmp_path, context_from):
         callback=lambda it, ts, m: resumed.append(float(m.loss)))
     assert len(resumed) == len(cont) == 10 and ts.iteration == 10
     np.testing.assert_array_equal(resumed[5:], cont[5:])
+
+
+@pytest.mark.parametrize("context_from", [100, 7])
+def test_resume_builds_no_model_from_points(tmp_path, monkeypatch,
+                                            context_from):
+    """A resume reads the checkpoint into a structure built from the config
+    alone: with `init_scene_model` raising, it repeats the continuous run
+    bit for bit, every loss and every leaf of the final model."""
+    scene = _tiny_scene()
+    opt = dict(iterations=9, noise_from=3, context_from=context_from,
+               start_stat=1, update_from=4, update_interval=4,
+               update_until=100)
+    cont = []
+    ts_cont = tloop.train(_tiny_cfg(**opt), scene, device="cpu",
+                          callback=lambda it, ts, m: cont.append(
+                              float(m.loss)))
+    mp = str(tmp_path / "run")
+    cfg = _tiny_cfg(**dict(opt, iterations=4))
+    tloop.train(tcfg.TrainConfig(model=cfg.model, opt=cfg.opt, model_path=mp,
+                                 checkpoint_iterations=(4,),
+                                 save_iterations=(), log_every=1000),
+                scene, device="cpu")
+
+    def refused(*args, **kw):
+        raise AssertionError("a resume built a model from the points")
+
+    monkeypatch.setattr(tst, "init_scene_model", refused)
+    cfg = _tiny_cfg(**opt)
+    resumed = []
+    ts = tloop.train(
+        tcfg.TrainConfig(model=cfg.model, opt=cfg.opt,
+                         start_checkpoint=f"{mp}/chkpnt4.pt",
+                         save_iterations=(), log_every=1000),
+        scene, device="cpu",
+        callback=lambda it, ts, m: resumed.append(float(m.loss)))
+    assert ts.iteration == 9 and len(resumed) == 5
+    np.testing.assert_array_equal(resumed, cont[4:])
+    assert ts.level_scales == ts_cont.level_scales
+    for name, x in tst.param_leaves(ts.model.params).items():
+        assert torch.equal(x, tst.param_leaves(ts_cont.model.params)[name]), \
+            name
+    for name in tst.Buffers._fields:
+        assert torch.equal(getattr(ts.model.buffers, name),
+                           getattr(ts_cont.model.buffers, name)), name
+
+
+class _Recorder(tloop.Run):
+    """A stand-in for a run that records each event of the schedule as
+    (event, iteration, detail): host code, no tensors."""
+
+    METRICS = types.SimpleNamespace(loss=0.5, psnr=20.0, bit_per_param=0.0)
+
+    def __init__(self, ts, sizes):
+        self.ts, self.events = ts, []
+        self.cams = [types.SimpleNamespace(width=w, height=h)
+                     for w, h in sizes]
+
+    def _add(self, event, detail=None):
+        self.events.append((event, self.ts.iteration, detail))
+
+    def make_step(self, phase, width, height):
+        self._add("make_step", (phase, width, height))
+        return phase
+
+    def step(self, fn, ci, it, with_stats):
+        self._add("step", (fn, ci, with_stats))
+        return self.METRICS
+
+    def enter_context(self):
+        self._add("transition")
+
+    def densify(self, it):
+        self._add("densify")
+
+    def report(self, it, phase, metrics):
+        self._add("report")
+
+    def evaluate(self, it, phase):
+        self._add("evaluate")
+
+    def n_alive(self):
+        self._add("log")
+        return 7
+
+    def save(self, it, order, snapshot):
+        self._add("save", snapshot)
+
+
+def test_schedule_of_a_run():
+    """The shared schedule over 4600 steps that cross noise_from,
+    context_from and densification's [3000, 4000) gap, driven through a
+    recording stand-in: the exact iterations of every phase change, the
+    transition, each densification round, log line, checkpoint and
+    snapshot; the statistics window; one step function a phase and view
+    size; the camera order from `ts.rng`; the order of the events within
+    a step; and a resume's pending camera taken first."""
+    cfg = tcfg.TrainConfig(
+        model=tcfg.ModelConfig(),
+        opt=tcfg.OptimizationConfig(
+            iterations=4600, noise_from=1000, context_from=3500,
+            start_stat=600, update_from=500, update_interval=250,
+            update_until=4500),
+        log_every=1000, checkpoint_iterations=(1500, 3600),
+        save_iterations=(3000, 4600), model_path="unused", seed=7)
+
+    def state(iteration=0):
+        return tloop.TrainerState(model=None, adam=None, voxel_size=0.1,
+                                  spatial_lr_scale=1.0, generator=None,
+                                  iteration=iteration,
+                                  rng=np.random.default_rng(cfg.seed))
+
+    ts = state()
+    run = _Recorder(ts, [(32, 32), (32, 32), (48, 32)])
+    calls = []
+    tloop.run_schedule(cfg, ts, run, [],
+                       lambda it, ts_, m: calls.append(it)
+                       or run._add("callback"))
+    assert ts.iteration == 4600 and calls == list(range(1, 4601))
+
+    def at(event):
+        return [it for e, it, _ in run.events if e == event]
+
+    steps = {it: d for e, it, d in run.events if e == "step"}
+    assert sorted(steps) == list(range(1, 4601))
+    phases = [steps[it][0] for it in range(1, 4601)]
+    assert [i + 1 for i in range(1, 4600) if phases[i] != phases[i - 1]] \
+        == [1001, 3501]
+    assert phases[0] == "plain" and phases[-1] == "context"
+    assert at("transition") == [3501]
+    assert at("densify") == [750, 1000, 1250, 1500, 1750, 2000, 2250, 2500,
+                             2750, 4000, 4250]
+    assert at("log") == [1000, 2000, 3000, 4000]
+    assert [(it, d) for e, it, d in run.events if e == "save"] == [
+        (1500, False), (3000, True), (3600, False), (4600, True)]
+    assert [it for it in steps if steps[it][2]] == list(range(601, 4500))
+    made = [(it, d) for e, it, d in run.events if e == "make_step"]
+    assert made == [(1, ("plain", 32, 32)), (made[1][0], ("plain", 48, 32)),
+                    (1001, ("noise", made[2][1][1], 32)),
+                    (made[3][0], made[3][1]),
+                    (3501, ("context", made[4][1][1], 32)),
+                    (made[5][0], made[5][1])]
+    assert {d for _, d in made} == {(p, w, 32) for p in ("plain", "noise",
+                                                         "context")
+                                    for w in (32, 48)}
+    rng = np.random.default_rng(cfg.seed)
+    want = []
+    while len(want) < 4600:
+        want += [int(i) for i in rng.permutation(3)][::-1]
+    assert [steps[it][1] for it in range(1, 4601)] == want[:4600]
+    assert [e for e, it, _ in run.events if it == 4000] == [
+        "step", "densify", "report", "callback", "evaluate", "log"]
+    assert [e for e, it, _ in run.events if it == 3000] == [
+        "step", "report", "callback", "evaluate", "log", "save"]
+    assert [e for e, it, _ in run.events if it == 3501] == [
+        "transition", "make_step", "step", "report", "callback", "evaluate"]
+
+    # a resume at 2999 with camera 1 pending: step 3000 takes it, then a
+    # new order from ts.rng
+    ts = state(2999)
+    run = _Recorder(ts, [(32, 32)] * 3)
+    tloop.run_schedule(cfg, ts, run, [1])
+    steps = {it: d for e, it, d in run.events if e == "step"}
+    assert min(steps) == 3000 and steps[3000][1] == 1
+    perm = [int(i) for i in np.random.default_rng(cfg.seed).permutation(3)]
+    assert [steps[it][1] for it in (3001, 3002, 3003)] == perm[::-1]
 
 
 def test_test_iterations_evaluate_every_test_camera(caplog):

@@ -137,7 +137,12 @@ after every phase has held.
    and the backward's gradient of seeded cotangents against autograd of
    the plain chain and reference.project_vjp_reference (each leaf within
    1e-5 of its norm, no element off by more than 1e-4 of its largest),
-   timed by events beside the plain chain's backward.
+   timed by events beside the plain chain's backward. Adam's launch count
+   is set to 0 with K1's and must equal the steps after; adam_check on the
+   last step's gradients and the state that step left: the kernel
+   (train/csrc/adam.cu) against the op chain, p, m and v bit-equal, and the
+   host time, kernels and device time a call of the kernel, the chain and
+   the chain in torch._foreach_* ops, with the kernel's bound from bytes.
 5b. viewer — the live SIBR viewer on the train cell's final model at
    1280x720 (viewer_phase): a loopback client sends the camera messages of
    4 orbit cameras as SIBR sends them (transposed, columns negated), one
@@ -1304,6 +1309,138 @@ def projection_check(where, proj_call, cull_call, dev, backward_seed=None):
     return res
 
 
+# bytes an element Adam's kernel must move: it reads p, g, m, v and writes
+# p, m, v (28); a leaf without a gradient reads no g (24)
+ADAM_BYTES = dict(grad=28, no_grad=24)
+
+
+def device_us(e):
+    """Device time of a profiler event, in microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def call_costs(fn, reps):
+    """What a call of `fn` costs: the host's time to enqueue it (no wait),
+    the card's kernels and their device time (torch.profiler), and the time
+    a call by events, back to back."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return dict(host_ms=host_ms,
+                device_ms=sum(device_us(e) for e in kernels) / 1e3 / reps,
+                kernels=sum(e.count for e in kernels) / reps,
+                events_ms=cuda_ms(fn, reps))
+
+
+def adam_foreach(params, grads, state, opt, it, scale, b1=0.9, b2=0.999,
+                 eps=1e-15):
+    """optim.chain_update over every leaf at once in PyTorch's multi-tensor
+    ops (torch._foreach_*), in the chain's op order, a division by a host
+    scalar as the product with its float32 reciprocal (as the chain's is on
+    the card): the library's path to the same update, for scale."""
+    from contextgs_tpu_torch.models.state import param_leaves
+    from contextgs_tpu_torch.train import optim as toptim
+
+    leaves = param_leaves(params)
+    lrs = toptim.group_lrs(opt, it, scale)
+    bc1, bc2 = toptim.bias_corrections(state.count + 1, b1, b2)
+    ps = list(leaves.values())
+    gs = [grads[n] if n in grads else torch.zeros_like(x)
+          for n, x in leaves.items()]
+    ms, vs = [state.mu[n] for n in leaves], [state.nu[n] for n in leaves]
+    torch._foreach_mul_(ms, b1)
+    torch._foreach_add_(ms, torch._foreach_mul(gs, 1 - b1))
+    torch._foreach_mul_(vs, b2)
+    torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(gs, gs),
+                                               1 - b2))
+    num = torch._foreach_mul(
+        torch._foreach_mul(ms, float(np.float32(1) / np.float32(bc1))),
+        [toptim.leaf_lr(n, lrs) for n in leaves])
+    den = torch._foreach_sqrt(
+        torch._foreach_mul(vs, float(np.float32(1) / np.float32(bc2))))
+    torch._foreach_add_(den, eps)
+    torch._foreach_sub_(ps, torch._foreach_div(num, den))
+
+
+def adam_check(where, params, grads, state, opt, it, scale):
+    """Adam's kernel (train/csrc/adam.cu) against the op chain
+    (optim.chain_update) and the chain in torch._foreach_* ops: one more
+    update of `params` and `state` with `grads` at step `it`, each from the
+    same values (restored after), p, m and v compared bit for bit; the
+    three timed by `call_costs`, and the kernel's bound from bytes at 3.35
+    TB/s. The parameters and moments are left as they were."""
+    from contextgs_tpu_torch.models.state import param_leaves
+    from contextgs_tpu_torch.train import optim as toptim
+
+    leaves = param_leaves(params)
+    tensors = {n: (x, state.mu[n], state.nu[n]) for n, x in leaves.items()}
+    kept = {n: [t.clone() for t in ts] for n, ts in tensors.items()}
+
+    def restore():
+        for n, ts in tensors.items():
+            for t, k in zip(ts, kept[n]):
+                t.copy_(k)
+
+    def differ(update):
+        """Elements of p, m and v whose bits differ from the chain's."""
+        update()
+        got = {n: [t.clone() for t in ts] for n, ts in tensors.items()}
+        restore()
+        chain()
+        n_differ = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                       for n, ts in tensors.items()
+                       for a, b in zip(got[n], ts))
+        restore()
+        return n_differ
+
+    def kernel():
+        toptim.adam_update(params, grads, state, opt, it, scale)
+
+    def chain():
+        lrs = toptim.group_lrs(opt, it, scale)
+        bc1, bc2 = toptim.bias_corrections(state.count + 1, 0.9, 0.999)
+        for n, (p, m, v) in tensors.items():
+            toptim.chain_update(p, grads.get(n), m, v, toptim.leaf_lr(n, lrs),
+                                0.9, 0.999, bc1, bc2, 1e-15)
+
+    def foreach():
+        adam_foreach(params, grads, state, opt, it, scale)
+
+    before = toptim.launches
+    res = dict(where=where, leaves=len(leaves),
+               with_grad=sum(n in grads for n in leaves),
+               elements=sum(x.numel() for x in leaves.values()),
+               differ=differ(kernel), launches=toptim.launches - before,
+               foreach_differ=differ(foreach))
+    n_bytes = sum(x.numel() * ADAM_BYTES["grad" if n in grads else "no_grad"]
+                  for n, x in leaves.items())
+    res.update(bytes=n_bytes, bound_ms=n_bytes / PEAK_HBM_BYTES * 1e3,
+               kernel=call_costs(kernel, 20), chain=call_costs(chain, 5),
+               foreach=call_costs(foreach, 10))
+    res["share_of_bound"] = (res["bound_ms"] / res["kernel"]["device_ms"]
+                             if res["kernel"]["device_ms"] else None)
+    restore()
+    emit(phase="adam_check", **res)
+    check(res["differ"] == 0 and res["launches"] == 1,
+          f"Adam's kernel bit-equal to the op chain in one launch, {where}")
+    return res
+
+
 def ssim_grad(dev):
     """The SSIM gradient at 1280x720, card float32 against CPU float64; and
     what a backward in cuDNN's TF32 (the filter switched off TF32 for its
@@ -1441,11 +1578,6 @@ def profile_train_steps(ts, cfg, scene, dev, phase, n=3):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     events = prof.key_averages()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_ms = sum(device_us(e) for e in kernels) / 1e3 / n
 
@@ -4181,6 +4313,7 @@ def main() -> int:
     # ---- 5. the main path of training ----
     begin("train")
     import contextgs_tpu_torch.train.loop as tloop
+    import contextgs_tpu_torch.train.optim as toptim
     import contextgs_tpu_torch.train.step as tstep
 
     scene = train_scene(dec, renders, orbit_cameras(N_VIEWS, W, H, 1))
@@ -4191,7 +4324,7 @@ def main() -> int:
         update_interval=10, update_until=75),
         test_iterations=(), save_iterations=(), log_every=10 ** 9)
     log, losses, bpps, step_ms, k2_kept, level_calls = [], [], [], [], {}, []
-    proj_kept, cull_kept = {}, {}
+    proj_kept, cull_kept, adam_kept = {}, {}, {}
     t_prev = [time.perf_counter()]
 
     def mark_step(it, ts, metrics):
@@ -4226,9 +4359,12 @@ def main() -> int:
                                     keep_call(proj_kept)))
         stack.enter_context(wrapped(trz, "visible_filter",
                                     keep_call(cull_kept)))
+        stack.enter_context(wrapped(tstep, "adam_update",
+                                    keep_call(adam_kept)))
         tile_kernel.launches = tile_kernel.backward_launches = 0
         scan.launches = 0
         tproj.launches = tproj.cull_launches = tproj.backward_launches = 0
+        toptim.launches = 0
         t_prev[0] = time.perf_counter()
         ts = tloop.train(tcfg, scene, callback=mark_step)
         torch.cuda.synchronize()
@@ -4238,6 +4374,7 @@ def main() -> int:
         proj_train = dict(train=tproj.launches,
                           train_cull=tproj.cull_launches,
                           train_backward=tproj.backward_launches)
+        adam_train = toptim.launches
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     bpps = [float(x) for x in bpps]
@@ -4274,6 +4411,7 @@ def main() -> int:
          anchors_final=int(ts.model.buffers.alive.sum()),
          capacity=int(ts.model.buffers.alive.shape[0]),
          k1_launches=train_k1, k2_launches=train_k2, k3_launches=k3_train,
+         adam_launches=adam_train,
          ms_per_step_median={ph: split[ph]["step_ms_median"]
                              for ph in TRAIN_PHASES},
          split=split, densify=densified, peak_mem_gib=train_peak,
@@ -4287,10 +4425,14 @@ def main() -> int:
     check(proj_train == dict(train=TRAIN_STEPS, train_cull=TRAIN_STEPS,
                              train_backward=TRAIN_STEPS),
           "one projection, cull and backward launch a training step")
+    check(adam_train == TRAIN_STEPS, "one Adam launch a training step")
     proj_train_res = projection_check(
         "train_last_step_1280x720", proj_kept["call"], cull_kept["call"], dev,
         backward_seed=60)
-    del proj_kept, cull_kept
+    (_, adam_grads, _, adam_opt, adam_it, adam_scale), _ = adam_kept["call"]
+    adam_res = adam_check("train_last_step", ts.model.params, adam_grads,
+                          ts.adam, adam_opt, adam_it + 1, adam_scale)
+    del proj_kept, cull_kept, adam_kept, adam_grads
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           "training losses finite")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]), "training loss falls")
@@ -4576,6 +4718,20 @@ def main() -> int:
         fwd_bwd_plain_ms=proj_train_res["fwd_bwd_plain_ms"],
         train_n_gaussians=proj_train_res["n_gaussians"],
         shape="the serve orbit's last view; the last training step"))
+    kernels.append(dict(
+        name="adam", route="cuda",
+        source="contextgs_tpu_torch/train/csrc/adam.cu", replaces=None,
+        replaces_xla="contextgs_tpu/train/optim.py::adam_update",
+        launches=adam_train + adam_res["launches"],
+        launches_by_path=dict(train=adam_train, check=adam_res["launches"]),
+        max_abs_err=0.0 if adam_res["differ"] == 0 else None,
+        ms=adam_res["kernel"]["device_ms"],
+        card_ms=adam_res["kernel"]["device_ms"],
+        plain_ms=adam_res["chain"]["events_ms"], bound_ms=adam_res["bound_ms"],
+        bound_by="bytes", bound_term="bytes",
+        library_ms=adam_res["foreach"]["events_ms"],
+        wrapper_ms=adam_res["kernel"]["host_ms"],
+        elements=adam_res["elements"], shape="the last training step's leaves"))
     kernels.append(dict(
         name="cdf_rows", route="cuda",
         source="contextgs_tpu_torch/compression/csrc/cdf_rows.cu",

@@ -8,6 +8,11 @@ anchor pool, so densification zeroes the rows of the slots it activates
 floats computed on the host from the step number, so no schedule value
 reaches the card.
 
+On CUDA tensors one hand-written kernel, `csrc/adam.cu`, updates every
+leaf's parameter and moments in one launch; on CPU tensors the plain op chain
+(`chain_update`) runs, op for op the reference's update. The chain is the
+kernel's plain version: on the card the two are bit-equal.
+
 Groups with schedules: offset, mask, mlp_opacity, mlp_cov, mlp_color,
 latent_codec (prior), mlp_grid, mlp_featurebank (and anchor, whose lr is 0:
 anchors are frozen). Constant lr: anchor_feat, hyper_latent, opacity,
@@ -16,13 +21,26 @@ scaling. Rotation and opacity_raw are frozen (lr 0).
 
 from __future__ import annotations
 
+import ctypes
 import math
+from pathlib import Path
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from contextgs_tpu_torch.config import OptimizationConfig
 from contextgs_tpu_torch.models.state import Params, param_leaves
+from contextgs_tpu_torch.ops.cuda_build import c_function, launch
+from contextgs_tpu_torch.utils import trace
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "adam.cu"
+MAX_LEAVES = 64          # adam.cu's kMaxLeaves: the leaves of one launch
+# n, the pointer, size and lr tables, seven float32 scalars, the stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 7
+            + [ctypes.c_void_p])
+
+launches = 0             # the kernel's launches in this process
 
 
 def expon_lr(step, lr_init: float, lr_final: float, lr_delay_steps: int = 0,
@@ -115,6 +133,68 @@ def init_adam(params: Params) -> AdamState:
                      count=0)
 
 
+def bias_corrections(count: int, b1: float, b2: float) -> tuple:
+    """1 - b1**count and 1 - b2**count, rounded to float32 on the host as
+    the reference computes them."""
+    cf = torch.tensor(float(count), dtype=torch.float32)
+    return (float(1 - torch.tensor(b1, dtype=torch.float32) ** cf),
+            float(1 - torch.tensor(b2, dtype=torch.float32) ** cf))
+
+
+def chain_update(p, g, m, v, lr: float, b1: float, b2: float, bc1: float,
+                 bc2: float, eps: float) -> None:
+    """One leaf's update by the plain op chain, in place: the CPU's path and
+    the kernel's plain version. A leaf without a gradient (`g` None) is
+    updated with a zero one."""
+    if g is None:
+        g = torch.zeros_like(p)
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * (g * g))
+    p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + eps))
+
+
+def _kernel_leaf(name, p, g, m, v, device):
+    """The leaf's gradient as the kernel reads it: contiguous (a copy only
+    where it is a view; on the main path every gradient is contiguous), or
+    None. Raises ValueError unless p, m, v and g are float32 tensors of p's
+    shape on `device`, p, m and v contiguous: the kernel updates them in
+    place."""
+    for what, x in (("p", p), ("m", m), ("v", v), ("g", g)):
+        if x is None:
+            continue
+        if (x.device != device or x.dtype != torch.float32
+                or x.shape != p.shape):
+            raise ValueError(
+                f"adam_update: {name}.{what} is {x.dtype} {tuple(x.shape)} "
+                f"on {x.device}; the kernel takes float32 "
+                f"{tuple(p.shape)} on {device}")
+        if what != "g" and not x.is_contiguous():
+            raise ValueError(f"adam_update: {name}.{what} is not contiguous")
+    return None if g is None else g.contiguous()
+
+
+def _adam_kernel(leaves, device, b1, b2, bc1, bc2, eps) -> None:
+    """`csrc/adam.cu` over `leaves` [(p, g, m, v, lr)], each non-empty, in
+    one launch. The table goes to the C function as three host arrays
+    (numpy builds them faster than ctypes): p, g, m, v pointers a leaf (0
+    for a missing g), the sizes and the lrs as float32."""
+    global launches
+    if len(leaves) > MAX_LEAVES:
+        raise ValueError(f"adam_update: {len(leaves)} leaves; one launch "
+                         f"takes at most {MAX_LEAVES}")
+    fn = c_function(SOURCE, "adam_leaves", ARGTYPES)
+    ptrs = np.array([0 if x is None else x.data_ptr()
+                     for leaf in leaves for x in leaf[:4]], np.uint64)
+    numel = np.array([leaf[0].numel() for leaf in leaves], np.int64)
+    lrs = np.array([leaf[4] for leaf in leaves], np.float32)
+    err = launch(fn, device, len(leaves), ptrs.ctypes.data, numel.ctypes.data,
+                 lrs.ctypes.data, b1, 1 - b1, b2, 1 - b2, bc1, bc2, eps)
+    if err != 0:
+        raise RuntimeError(f"adam_update: kernel launch failed with CUDA "
+                           f"error {err}")
+    launches += 1
+
+
 @torch.no_grad()
 def adam_update(params: Params, grads: dict, state: AdamState,
                 opt: OptimizationConfig, step, spatial_lr_scale: float,
@@ -125,19 +205,29 @@ def adam_update(params: Params, grads: dict, state: AdamState,
     gradients; a leaf with none (unused in this phase) is updated with a
     zero gradient, as the reference updates it. Parameters and moments are
     updated in place, which saves a copy of the model; the same `params`
-    is returned with a new AdamState."""
+    is returned with a new AdamState.
+
+    On a CUDA device every leaf goes to the kernel, one launch for all of
+    them, bit-equal to the op chain there (a leaf of another dtype, shape or
+    device raises ValueError); on the CPU `chain_update` updates each leaf.
+    Every leaf's elements are added to the trace counter `adam_elems`, the
+    kernel's to `adam_card_elems` too."""
     lrs = group_lrs(opt, step, spatial_lr_scale)
     count = state.count + 1
-    cf = torch.tensor(float(count), dtype=torch.float32)
-    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** cf)
-    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** cf)
-    for name, p in param_leaves(params).items():
-        g = grads.get(name)
-        if g is None:
-            g = torch.zeros_like(p)
-        m, v = state.mu[name], state.nu[name]
-        m.mul_(b1).add_((1 - b1) * g)
-        v.mul_(b2).add_((1 - b2) * (g * g))
-        p.sub_(leaf_lr(name, lrs) * (m / bc1)
-               / (torch.sqrt(v / bc2) + eps))
+    bc1, bc2 = bias_corrections(count, b1, b2)
+    leaves = param_leaves(params)
+    device = next(iter(leaves.values())).device
+    card, n_elems = [], 0
+    for name, p in leaves.items():
+        g, m, v = grads.get(name), state.mu[name], state.nu[name]
+        lr = leaf_lr(name, lrs)
+        n_elems += p.numel()
+        if device.type != "cuda":
+            chain_update(p, g, m, v, lr, b1, b2, bc1, bc2, eps)
+        elif p.numel():
+            card.append((p, _kernel_leaf(name, p, g, m, v, device), m, v, lr))
+    if card:
+        _adam_kernel(card, device, b1, b2, bc1, bc2, eps)
+    trace.count("adam_elems", n_elems)
+    trace.count("adam_card_elems", n_elems if device.type == "cuda" else 0)
     return params, AdamState(mu=state.mu, nu=state.nu, count=count)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
 (the lane prefix sum), K4 (the forward's five stages), K5/K6 (the slab
-transposes) and the projection's three (forward, cull, backward) against
-their plain versions, the codec's CDF rows against theirs, and the codec's
-round trip on the card.
+transposes), the projection's three (forward, cull, backward) and Adam's
+against their plain versions, the codec's CDF rows against theirs, and the
+codec's round trip on the card.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -20,11 +20,12 @@ import numpy as np
 import pytest
 import torch
 from scipy.special import ndtr
+from torch.profiler import ProfilerActivity, profile
 
 from contextgs_tpu_torch.compression import cdf_rows as tcdf
 from contextgs_tpu_torch.compression import codec as tcodec
 from contextgs_tpu_torch.compression import coder as tcoder
-from contextgs_tpu_torch.config import ModelConfig
+from contextgs_tpu_torch.config import ModelConfig, OptimizationConfig
 from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops import scan as tscan
@@ -38,6 +39,9 @@ from contextgs_tpu_torch.ops.rasterize.common import (ALPHA_EPS,
 from contextgs_tpu_torch.scene.cameras import make_camera
 from contextgs_tpu_torch.scripts import kvariants as tkv
 from contextgs_tpu_torch.scripts import xpose_lab as txl
+from contextgs_tpu_torch.train import loop as tloop
+from contextgs_tpu_torch.train import optim as toptim
+from contextgs_tpu_torch.utils import trace
 
 import projection_cases
 
@@ -1598,3 +1602,133 @@ def test_projection_kernel_wrapper_refuses_bad_inputs(fault):
         with pytest.raises(ValueError):
             trz.visible_filter(means, scales, *cam, valid=valid)
     assert (tproj.launches, tproj.cull_launches) == counts
+
+
+# ------------------------------------------------------------------ Adam
+
+ADAM_STEP, ADAM_LR_SCALE = 1600, 3.7
+ADAM_CASES = [("all", 1000), ("all", 400_000), ("plain", 1000),
+              ("plain", 400_000), ("frozen", 1000), ("odd_misaligned", 1001),
+              ("non_contiguous", 1000), ("grown", 1000)]
+
+
+def _misaligned(x):
+    """A contiguous copy of `x` 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    return view
+
+
+def _adam_card_inputs(case, capacity, gen):
+    """`blank_params`' 46 leaves at the published widths on the card, filled
+    from `gen` (a CUDA generator), the upper half of the anchor slots empty
+    (zero, as the pool's dead slots are), and Adam's moments likewise."""
+    params = tst.blank_params(ModelConfig(), capacity, device="cuda")
+    leaves = tst.param_leaves(params)
+    mu, nu = {}, {}
+    for name, x in leaves.items():
+        x.copy_(torch.randn(x.shape, generator=gen, device="cuda"))
+        mu[name] = torch.randn(x.shape, generator=gen, device="cuda") * 1e-2
+        nu[name] = torch.rand(x.shape, generator=gen, device="cuda") * 1e-4
+        if name in tst.ANCHOR_FIELDS:
+            for t in (x, mu[name], nu[name]):
+                t[capacity // 2:] = 0.0
+    if case == "odd_misaligned":
+        params = params._replace(anchor_feat=_misaligned(params.anchor_feat))
+        mu["offsets"] = _misaligned(mu["offsets"])
+        nu["scaling_log"] = _misaligned(nu["scaling_log"])
+    return params, toptim.AdamState(mu=mu, nu=nu, count=7)
+
+
+def _adam_card_grads(case, leaves, gen):
+    """Gradients of the leaves a case gives one: "plain" those of a plain
+    step (no prior, grid MLPs, hyper latent, rotation or opacity); "frozen"
+    the lr-0 leaves alone; "non_contiguous" one MLP weight's a transposed
+    view; the upper half of the anchor slots zero."""
+    names = list(leaves)
+    if case == "plain":
+        names = [n for n in names
+                 if n not in ("hyper_latent", "rotation", "opacity_raw")
+                 and not n.startswith(("mlps.grid.", "prior."))]
+    elif case == "frozen":
+        names = ["anchor", "rotation", "opacity_raw"]
+    grads = {}
+    for name in names:
+        x = leaves[name]
+        g = torch.randn(x.shape, generator=gen, device="cuda") * 1e-2
+        if name in tst.ANCHOR_FIELDS:
+            g[x.shape[0] // 2:] = 0.0
+        grads[name] = g
+    if case == "non_contiguous":
+        g = grads["mlps.opacity.l1.weight"]
+        grads["mlps.opacity.l1.weight"] = g.t().contiguous().t()
+        assert not grads["mlps.opacity.l1.weight"].is_contiguous()
+    return grads
+
+
+def _grow_reference(ref, capacity):
+    """The reference's leaves padded as `loop.grow_capacity` pads the pool."""
+    for name, xs in ref.items():
+        if name in tst.ANCHOR_FIELDS:
+            ref[name] = [torch.cat([x, x.new_zeros((capacity - x.shape[0],)
+                                                   + x.shape[1:])])
+                         for x in xs]
+
+
+def _int_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,capacity", ADAM_CASES)
+def test_adam_kernel_matches_the_op_chain(case, capacity):
+    """Three consecutive `adam_update` calls, one launch each, against
+    `chain_update` leaf by leaf on the same card: p, m and v bit-equal
+    (lr-0 leaves and empty slots included). A non-contiguous gradient is
+    read by the kernel too, in the same launch, and every element is counted
+    in `adam_card_elems`; a pool grown between two calls is updated whole."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    gen = torch.Generator(device="cuda").manual_seed(capacity + len(case))
+    params, state = _adam_card_inputs(case, capacity, gen)
+    ref = {n: [x.clone(), state.mu[n].clone(), state.nu[n].clone()]
+           for n, x in tst.param_leaves(params).items()}
+    opt = OptimizationConfig()
+    for call in range(3):
+        if case == "grown" and call == 2:
+            buffers = tst.Buffers(*(torch.zeros(capacity, device="cuda")
+                                    for _ in tst.Buffers._fields))
+            model, state = tloop.grow_capacity(
+                tst.SceneModel(params, buffers), state, 4 * capacity)
+            params = model.params
+            _grow_reference(ref, 4 * capacity)
+        leaves = tst.param_leaves(params)
+        grads = _adam_card_grads(case, leaves, gen)
+        it = ADAM_STEP + call
+        before = toptim.launches
+        trace.take()
+        with profile(activities=[ProfilerActivity.CPU]):
+            params, state = toptim.adam_update(params, grads, state, opt, it,
+                                               ADAM_LR_SCALE)
+        counts = {}
+        for c in trace.take().counts:
+            counts[c.name] = counts.get(c.name, 0) + c.n
+        assert toptim.launches == before + 1
+        total = sum(x.numel() for x in leaves.values())
+        assert counts == {"adam_elems": total, "adam_card_elems": total}
+        lrs = toptim.group_lrs(opt, it, ADAM_LR_SCALE)
+        bc1, bc2 = toptim.bias_corrections(state.count, 0.9, 0.999)
+        for name, (p, m, v) in ref.items():
+            toptim.chain_update(p, grads.get(name), m, v,
+                                toptim.leaf_lr(name, lrs), 0.9, 0.999, bc1,
+                                bc2, 1e-15)
+        torch.cuda.synchronize()
+        for name, x in tst.param_leaves(params).items():
+            for what, got, want in (("p", x, ref[name][0]),
+                                    ("m", state.mu[name], ref[name][1]),
+                                    ("v", state.nu[name], ref[name][2])):
+                assert got.shape == want.shape, (name, what)
+                diff = int((_int_bits(got) != _int_bits(want)).sum())
+                assert diff == 0, f"call {call}: {name}.{what}: {diff} differ"

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import profile
 
 from contextgs_tpu import config as jcfg
 from contextgs_tpu.models import densify as jdensify
@@ -29,6 +30,7 @@ from contextgs_tpu_torch.scene.ply_io import read_ply
 from contextgs_tpu_torch.train import loop as tloop
 from contextgs_tpu_torch.train import optim as toptim
 from contextgs_tpu_torch.train import step as tstep
+from contextgs_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -127,6 +129,112 @@ def test_adam_update_matches_jax(rng):
     for name in ("rotation", "opacity_raw", "anchor"):
         np.testing.assert_array_equal(getattr(p_t, name).numpy(),
                                       np.asarray(getattr(params, name)))
+
+
+def _adam_inputs(grads_of, seed=3, capacity=40):
+    """Random CPU leaves of `blank_params`, moments, and gradients for the
+    leaves `grads_of` picks ("all": every leaf; "plain": those a plain-phase
+    step gives one)."""
+    gen = torch.Generator().manual_seed(seed)
+    cfg = tcfg.ModelConfig(**CFG_KW)
+    params = tst.blank_params(cfg, capacity, generator=gen, device="cpu")
+    leaves = tst.param_leaves(params)
+    for x in leaves.values():
+        x.copy_(torch.randn(x.shape, generator=gen))
+
+    def like(x, scale):
+        return torch.randn(x.shape, generator=gen) * scale
+
+    state = toptim.AdamState(
+        mu={n: like(x, 1e-2) for n, x in leaves.items()},
+        nu={n: like(x, 1e-2) ** 2 for n, x in leaves.items()}, count=4)
+    plain = [n for n in leaves if n not in ("hyper_latent", "rotation",
+                                            "opacity_raw")
+             and not n.startswith(("mlps.grid.", "prior."))]
+    grads = {n: like(leaves[n], 1e-2)
+             for n in (leaves if grads_of == "all" else plain)}
+    return params, grads, state
+
+
+@pytest.mark.parametrize("grads_of", ["all", "plain"])
+def test_adam_update_on_cpu_runs_the_chain(grads_of, monkeypatch):
+    """On CPU tensors `adam_update` is `chain_update` leaf by leaf, bit for
+    bit, and never reaches the kernel: the JAX comparisons above hold the
+    plain version."""
+    def no_kernel(*args):
+        raise AssertionError("the CPU path reached the kernel")
+
+    monkeypatch.setattr(toptim, "c_function", no_kernel)
+    params, grads, state = _adam_inputs(grads_of)
+    opt = tcfg.OptimizationConfig()
+    want = {n: (x.clone(), state.mu[n].clone(), state.nu[n].clone())
+            for n, x in tst.param_leaves(params).items()}
+    before = toptim.launches
+    params, state = toptim.adam_update(params, grads, state, opt, 1600, 3.7)
+    assert toptim.launches == before and state.count == 5
+    lrs = toptim.group_lrs(opt, 1600, 3.7)
+    bc1, bc2 = toptim.bias_corrections(5, 0.9, 0.999)
+    for name, (p, m, v) in want.items():
+        toptim.chain_update(p, grads.get(name), m, v,
+                            toptim.leaf_lr(name, lrs), 0.9, 0.999, bc1, bc2,
+                            1e-15)
+    for name, x in tst.param_leaves(params).items():
+        for got, ref in ((x, want[name][0]), (state.mu[name], want[name][1]),
+                         (state.nu[name], want[name][2])):
+            assert torch.equal(got, ref), name
+
+
+@pytest.mark.parametrize("grads_of", ["all", "plain"])
+def test_adam_update_counts_its_elements(grads_of):
+    """Under a recording profiler `adam_elems` counts every element of every
+    leaf, with a gradient or without; on the CPU `adam_card_elems` counts 0.
+    Without a profiler nothing is counted."""
+    params, grads, state = _adam_inputs(grads_of)
+    total = sum(x.numel() for x in tst.param_leaves(params).values())
+    opt = tcfg.OptimizationConfig()
+    trace.take()
+    toptim.adam_update(params, grads, state, opt, 1600, 3.7)
+    assert trace.take().counts == []
+    with profile():
+        toptim.adam_update(params, grads, state, opt, 1601, 3.7)
+    counts = {}
+    for c in trace.take().counts:
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    assert counts == {"adam_elems": total, "adam_card_elems": 0}
+
+
+@pytest.mark.parametrize("fault", [None, "no_grad", "grad_view", "dtype",
+                                   "shape", "device", "param_view"])
+def test_kernel_takes_only_contiguous_float32_leaves_of_one_shape(fault):
+    """What the kernel is handed of a CUDA leaf: p, m, v and a gradient
+    (where there is one) float32 of p's shape on the device of the launch,
+    p, m and v contiguous, else ValueError; a gradient that is a view is
+    handed over as a contiguous copy, a contiguous one as it is."""
+    p, m, v, g = (torch.arange(24.0).reshape(6, 4) for _ in range(4))
+    device = torch.device("cpu")
+    if fault == "no_grad":
+        g = None
+    elif fault == "grad_view":
+        g = torch.arange(24.0).reshape(4, 6).t()
+    elif fault == "dtype":
+        m = m.double()
+    elif fault == "shape":
+        v = v.reshape(4, 6)
+    elif fault == "device":
+        device = torch.device("meta")
+    elif fault == "param_view":
+        p = torch.zeros(4, 6).t()
+    if fault in ("dtype", "shape", "device", "param_view"):
+        with pytest.raises(ValueError):
+            toptim._kernel_leaf("offsets", p, g, m, v, device)
+        return
+    got = toptim._kernel_leaf("offsets", p, g, m, v, device)
+    if fault == "no_grad":
+        assert got is None
+    elif fault == "grad_view":
+        assert got.is_contiguous() and torch.equal(got, g)
+    else:
+        assert got is g
 
 
 # -------------------------------------------------------------- densify

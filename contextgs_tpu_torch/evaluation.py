@@ -65,6 +65,7 @@ def make_decoded_renderer(dec: DecodedScene, cfg: TrainConfig, width: int,
                                         width, height)
             with trace.sync("view.visible"):
                 idx = torch.nonzero(vis).squeeze(1)
+            trace.count("visible_anchors", idx.numel())
             with trace.span("render/decode"):
                 ng = decode_neural_gaussians(
                     params, None, mcfg, cam["camera_center"], vis[idx],

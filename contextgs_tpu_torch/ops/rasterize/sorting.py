@@ -48,6 +48,7 @@ def expand_and_sort(proj: ProjectedGaussians, tiles_x: int, tiles_y: int,
     incl = torch.cumsum(counts, 0)
     with trace.sync("sort.demand"):
         demand = int(incl[-1]) if incl.numel() else 0
+    trace.count("tile_instances", demand)
     offsets = incl - counts                                    # exclusive
 
     rank = torch.repeat_interleave(

@@ -96,7 +96,12 @@ after every phase has held.
    against the plain chain on the last view's inputs (floats within 2e-6
    relative, every integer output and the cull mask equal), each timed by
    events (and by card_ms) beside the plain chain, with its bound from
-   bytes.
+   bytes. binning_check: the binning's launch count (two a view), then its
+   kernels (ops/rasterize/csrc/binning.cu) against the plain chain
+   (sorting.expand_and_sort_plain) on the last view's projection:
+   gauss_ids, tile_bounds, demand and n_vis equal, two launches a call;
+   each timed by events and by the profiler's device time beside the plain
+   chain, with its bound from bytes.
 4. ssim_grad — the SSIM gradient at 1280x720 on the card against float64 on
    the CPU (1e-5 relative; cuDNN's TF32 would give about 1e-3, printed too).
 5. train — the main path of training at full width: train() from
@@ -143,6 +148,9 @@ after every phase has held.
    (train/csrc/adam.cu) against the op chain, p, m and v bit-equal, and the
    host time, kernels and device time a call of the kernel, the chain and
    the chain in torch._foreach_* ops, with the kernel's bound from bytes.
+   The binning's launch count is set to 0 with K1's and must be twice the
+   steps after; binning_check on the last step's projection, as on the
+   serve view's.
 5b. viewer — the live SIBR viewer on the train cell's final model at
    1280x720 (viewer_phase): a loopback client sends the camera messages of
    4 orbit cameras as SIBR sends them (transposed, columns negated), one
@@ -1306,6 +1314,53 @@ def projection_check(where, proj_call, cull_call, dev, backward_seed=None):
                                   res["grad_vs_reference"]))
     emit(phase="projection_check", **res)
     check(ok, f"the projection's kernels against the plain chain, {where}")
+    return res
+
+
+# bytes the binning must move: it reads each gaussian slot's depth, tile
+# count and both rects once (24) and writes each instance's gaussian id and
+# each tile's bound once (4 each)
+BIN_BYTES = dict(slot=4 + 4 + 8 + 8, instance=4, tile=4)
+
+
+def binning_check(where, sort_args):
+    """The binning's kernels (ops/rasterize/csrc/binning.cu) against the
+    plain chain on the last arguments a phase gave expand_and_sort
+    (`keep_args`): gauss_ids, tile_bounds, demand and n_vis equal, two
+    launches a call; the kernels and the chain each timed by `call_costs`
+    (host time, kernels and device time a call, events), and the kernels'
+    bound from bytes at 3.35 TB/s."""
+    from contextgs_tpu_torch.ops.rasterize import sorting as tsort
+
+    proj, tiles_x, tiles_y = sort_args[:3]
+    row0 = sort_args[3] if len(sort_args) > 3 else 0
+    proj = proj._replace(**{k: getattr(proj, k).detach()
+                            for k in proj._fields})
+    before = tsort.launches
+    got = tsort.expand_and_sort(proj, tiles_x, tiles_y, row0)
+    launches = tsort.launches - before
+    want = tsort.expand_and_sort_plain(proj, tiles_x, tiles_y, row0)
+    n, n_tiles = proj.depths.shape[0], tiles_x * tiles_y
+    equal = dict(gauss_ids=bool(torch.equal(got.gauss_ids, want.gauss_ids)),
+                 tile_bounds=bool(torch.equal(got.tile_bounds,
+                                              want.tile_bounds)),
+                 demand=got.demand == want.demand,
+                 n_vis=int(got.n_vis) == int(want.n_vis))
+    n_bytes = (BIN_BYTES["slot"] * n + BIN_BYTES["instance"] * want.demand
+               + BIN_BYTES["tile"] * (n_tiles + 1))
+    res = dict(where=where, n_gaussians=n, instances=want.demand,
+               n_vis=int(want.n_vis), tiles=n_tiles, row0=row0,
+               sort_bits=tsort.tile_sort_bits(n_tiles), equal=equal,
+               launches=launches, bytes=n_bytes,
+               bound_ms=n_bytes / PEAK_HBM_BYTES * 1e3,
+               kernel=call_costs(lambda: tsort.expand_and_sort(
+                   proj, tiles_x, tiles_y, row0), 20),
+               chain=call_costs(lambda: tsort.expand_and_sort_plain(
+                   proj, tiles_x, tiles_y, row0), 5))
+    emit(phase="binning_check", **res)
+    check(all(equal.values()) and launches == 2,
+          f"the binning's kernels equal to the plain chain in two launches, "
+          f"{where}")
     return res
 
 
@@ -4016,6 +4071,7 @@ def main() -> int:
     from contextgs_tpu_torch.ops import cuda_build, scan
     from contextgs_tpu_torch.ops.rasterize import projection as tproj
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
+    from contextgs_tpu_torch.ops.rasterize import sorting as tsort
     from contextgs_tpu_torch.scripts import kvariants, xpose_lab
     from contextgs_tpu_torch.scripts.fps_bench import decoded_scene
 
@@ -4037,7 +4093,8 @@ def main() -> int:
           "reference.FWD_WARP is the warp of K1's source")
     t0 = time.perf_counter()
     cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
-                                            xpose_lab.SOURCE, tproj.SOURCE)
+                                            xpose_lab.SOURCE, tproj.SOURCE,
+                                            tsort.SOURCE)
                      + (tuple(prev.values()) if prev else ())
                      + (tuple(prev_offset.values()) if prev_offset else ())
                      + tuple(knockouts.values())
@@ -4060,6 +4117,9 @@ def main() -> int:
          k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"),
          k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"),
          projection_ptxas=ptxas("projection"),
+         binning_ptxas={name: lines for name, lines
+                        in ptxas_kernels("binning").items()
+                        if not name.startswith("_ZN3cub")},
          prev_sources=prev, k2_prev_ptxas=ptxas("blend_backward_prev"),
          k2_knockouts=sorted(knockouts), k1_geometry=geometry,
          k1_other_geometries=sorted(geometry_sources),
@@ -4158,11 +4218,13 @@ def main() -> int:
             wrapped(trz, "visible_filter", keep_call(cull_kept)):
         tile_kernel.launches = scan.launches = 0
         tproj.launches = tproj.cull_launches = 0
+        tsort.launches = 0
         renders, gts, fps = render_set(render, cams, bg, view_ms=view_ms)
         torch.cuda.synchronize()
         k1_launches, k3_serve = tile_kernel.launches, scan.launches
         proj_serve = dict(serve=tproj.launches,
                           serve_cull=tproj.cull_launches)
+        bin_serve = tsort.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     metrics = evaluate_images(renders, gts)
     timed = view_ms[WARMUP:]
@@ -4177,6 +4239,7 @@ def main() -> int:
     check(k1_launches == N_VIEWS, "K1 launches on the main path != views")
     check(proj_serve == dict(serve=N_VIEWS, serve_cull=N_VIEWS),
           "one projection and one cull launch a view")
+    check(bin_serve == 2 * N_VIEWS, "two binning launches a view")
     check(all(tuple(r.shape) == (3, H, W) and bool(torch.isfinite(r).all())
               for r in renders), "renders finite [3,H,W]")
     check(math.isfinite(metrics["PSNR"]) and math.isfinite(metrics["SSIM"]),
@@ -4232,6 +4295,7 @@ def main() -> int:
     proj_serve_res = projection_check("serve_100k_1280x720",
                                       proj_kept["call"], cull_kept["call"],
                                       dev)
+    bin_serve_res = binning_check("serve_100k_1280x720", sort_kept["args"])
     del proj_kept, cull_kept
     # K2 on the serve view's K1 inputs with seeded cotangents: a denser
     # list than training's; checked here, timed against the previous K2
@@ -4324,7 +4388,7 @@ def main() -> int:
         update_interval=10, update_until=75),
         test_iterations=(), save_iterations=(), log_every=10 ** 9)
     log, losses, bpps, step_ms, k2_kept, level_calls = [], [], [], [], {}, []
-    proj_kept, cull_kept, adam_kept = {}, {}, {}
+    proj_kept, cull_kept, adam_kept, bin_kept = {}, {}, {}, {}
     t_prev = [time.perf_counter()]
 
     def mark_step(it, ts, metrics):
@@ -4361,7 +4425,10 @@ def main() -> int:
                                     keep_call(cull_kept)))
         stack.enter_context(wrapped(tstep, "adam_update",
                                     keep_call(adam_kept)))
+        stack.enter_context(wrapped(trz, "expand_and_sort",
+                                    keep_args(bin_kept)))
         tile_kernel.launches = tile_kernel.backward_launches = 0
+        tsort.launches = 0
         scan.launches = 0
         tproj.launches = tproj.cull_launches = tproj.backward_launches = 0
         toptim.launches = 0
@@ -4375,6 +4442,7 @@ def main() -> int:
                           train_cull=tproj.cull_launches,
                           train_backward=tproj.backward_launches)
         adam_train = toptim.launches
+        bin_train = tsort.launches
     train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     bpps = [float(x) for x in bpps]
@@ -4426,13 +4494,16 @@ def main() -> int:
                              train_backward=TRAIN_STEPS),
           "one projection, cull and backward launch a training step")
     check(adam_train == TRAIN_STEPS, "one Adam launch a training step")
+    check(bin_train == 2 * TRAIN_STEPS, "two binning launches a training step")
     proj_train_res = projection_check(
         "train_last_step_1280x720", proj_kept["call"], cull_kept["call"], dev,
         backward_seed=60)
     (_, adam_grads, _, adam_opt, adam_it, adam_scale), _ = adam_kept["call"]
     adam_res = adam_check("train_last_step", ts.model.params, adam_grads,
                           ts.adam, adam_opt, adam_it + 1, adam_scale)
-    del proj_kept, cull_kept, adam_kept, adam_grads
+    bin_train_res = binning_check("train_last_step_1280x720",
+                                  bin_kept["args"])
+    del proj_kept, cull_kept, adam_kept, adam_grads, bin_kept
     check(len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses)),
           "training losses finite")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]), "training loss falls")
@@ -4717,6 +4788,34 @@ def main() -> int:
         fwd_bwd_ms=proj_train_res["fwd_bwd_ms"],
         fwd_bwd_plain_ms=proj_train_res["fwd_bwd_plain_ms"],
         train_n_gaussians=proj_train_res["n_gaussians"],
+        shape="the serve orbit's last view; the last training step"))
+    kernels.append(dict(
+        name="binning", route="cuda",
+        source="contextgs_tpu_torch/ops/rasterize/csrc/binning.cu",
+        replaces=None,
+        replaces_xla="contextgs_tpu/ops/rasterize/sorting.py::expand_and_sort",
+        launches=bin_serve + bin_train + bin_serve_res["launches"]
+        + bin_train_res["launches"],
+        launches_by_path=dict(serve=bin_serve, train=bin_train,
+                              check=bin_serve_res["launches"]
+                              + bin_train_res["launches"]),
+        max_abs_err=0.0 if all(bin_serve_res["equal"].values()) else None,
+        ms=bin_serve_res["kernel"]["events_ms"],
+        card_ms=bin_serve_res["kernel"]["device_ms"],
+        plain_ms=bin_serve_res["chain"]["events_ms"],
+        plain_device_ms=bin_serve_res["chain"]["device_ms"],
+        bound_ms=bin_serve_res["bound_ms"], bound_by="bytes",
+        bound_term="bytes", library_ms=None,
+        wrapper_ms=bin_serve_res["kernel"]["host_ms"],
+        kernels_a_call=bin_serve_res["kernel"]["kernels"],
+        plain_kernels_a_call=bin_serve_res["chain"]["kernels"],
+        instances=bin_serve_res["instances"],
+        n_gaussians=bin_serve_res["n_gaussians"],
+        train_ms=bin_train_res["kernel"]["events_ms"],
+        train_card_ms=bin_train_res["kernel"]["device_ms"],
+        train_plain_ms=bin_train_res["chain"]["events_ms"],
+        train_bound_ms=bin_train_res["bound_ms"],
+        train_instances=bin_train_res["instances"],
         shape="the serve orbit's last view; the last training step"))
     kernels.append(dict(
         name="adam", route="cuda",

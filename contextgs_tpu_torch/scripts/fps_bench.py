@@ -20,9 +20,9 @@ The chained path amortizes less than the JAX script's: that one runs the V
 views as one `fori_loop` inside one jit, whereas the port's renderer
 synchronizes with the host twice a view — the visible anchors are
 compacted by `torch.nonzero` (`evaluation.py:63`), and the tile binning
-reads the instance count back (`ops/rasterize/sorting.py:48`) — so the host
-still waits for the card in every view, and what (b) saves is the per-view
-event sync and the cameras' copies.
+reads the instance count back (`ops/rasterize/sorting.py`, `sort.demand`)
+— so the host still waits for the card in every view, and what (b) saves
+is the per-view event sync and the cameras' copies.
 
 Prints both ms a view, both FPS and their ratio. On the CPU (`--force_cpu`,
 or `device="cpu"`) the host clock stands in for the events.

@@ -1,8 +1,8 @@
 """The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
 (the lane prefix sum), K4 (the forward's five stages), K5/K6 (the slab
-transposes), the projection's three (forward, cull, backward) and Adam's
-against their plain versions, the codec's CDF rows against theirs, and the
-codec's round trip on the card.
+transposes), the projection's three (forward, cull, backward), the tile
+binning's two passes and Adam's against their plain versions, the codec's
+CDF rows against theirs, and the codec's round trip on the card.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 the GPU machine, which has no JAX:
@@ -31,6 +31,7 @@ from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops import scan as tscan
 from contextgs_tpu_torch.ops.rasterize import projection as tproj
 from contextgs_tpu_torch.ops.rasterize import reference as tref
+from contextgs_tpu_torch.ops.rasterize import sorting as tsort
 from contextgs_tpu_torch.ops.rasterize import tile_kernel
 from contextgs_tpu_torch.ops.rasterize.common import (ALPHA_EPS,
                                                       alpha_footprint,
@@ -1602,6 +1603,184 @@ def test_projection_kernel_wrapper_refuses_bad_inputs(fault):
         with pytest.raises(ValueError):
             trz.visible_filter(means, scales, *cam, valid=valid)
     assert (tproj.launches, tproj.cull_launches) == counts
+
+
+# ---- the tile binning's kernels ----
+
+def _synthetic_projection(n, width, height, seed, sizes, culled=0.3,
+                          band=None, depths=None):
+    """The integer outputs of a projection (and its depths) as the binning
+    reads them, drawn on the card: rects of `sizes(gen, n)` tiles across and
+    down (clipped to the image or to `band`), their centres normal about the
+    image's centre so the centre tiles run hot, a share `culled` with no
+    tiles, depths uniform in [0.3, 50) unless given."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tiles_x, tiles_y = (width + 15) // 16, (height + 15) // 16
+    lo, hi = (0, tiles_y) if band is None else (band[0],
+                                                band[0] + band[1])
+    w, h = sizes(gen, n)
+    cx = (torch.randn(n, generator=gen, device=dev) * tiles_x / 5
+          + tiles_x / 2)
+    cy = torch.randn(n, generator=gen, device=dev) * tiles_y / 5 + tiles_y / 2
+    x0 = (cx - w / 2).floor().to(torch.int32).clamp(0, tiles_x)
+    y0 = (cy - h / 2).floor().to(torch.int32).clamp(lo, hi)
+    x1 = (x0 + w).clamp(0, tiles_x)
+    y1 = (y0 + h).clamp(lo, hi)
+    n_tiles = (x1 - x0) * (y1 - y0)
+    n_tiles[torch.rand(n, generator=gen, device=dev) < culled] = 0
+    if depths is None:
+        depths = torch.rand(n, generator=gen, device=dev) * 49.7 + 0.3
+    zeros = torch.zeros(n, 2, device=dev)
+    return tproj.ProjectedGaussians(
+        means2d=zeros, conics=torch.zeros(n, 3, device=dev), depths=depths,
+        radii=n_tiles.clone(), rect_min=torch.stack([x0, y0], 1),
+        rect_max=torch.stack([x1, y1], 1), n_tiles=n_tiles.to(torch.int32))
+
+
+def _rect_sizes(lo, hi):
+    """Rect sides uniform in [lo, hi] tiles."""
+    def draw(gen, n):
+        return tuple(torch.randint(lo, hi + 1, (n,), generator=gen,
+                                   device="cuda", dtype=torch.int32)
+                     for _ in range(2))
+    return draw
+
+
+def _long_rect_sizes(gen, n):
+    """Street level: sides log-uniform in [1, 22] tiles, tens of tiles a
+    rect and some hundreds."""
+    return tuple((2 ** (torch.rand(n, generator=gen, device="cuda") * 4.5))
+                 .floor().to(torch.int32) for _ in range(2))
+
+
+def _projected_view(case, band=None):
+    """(ProjectedGaussians, tiles_x, tiles_y, row0) of a real projection of
+    a projection test scene on the card."""
+    sc, geom, put = _card_scene(case)
+    kw = dict(valid=put(sc["valid"]), opacities=put(sc["opac"]))
+    if band is not None:
+        kw["tile_band"] = band
+    proj = trz.project_gaussians(
+        put(sc["means"]), put(sc["scales"]), put(sc["quats"]),
+        geom["world_view"], geom["full_proj"], geom["tanfovx"],
+        geom["tanfovy"], geom["width"], geom["height"], **kw)
+    tiles_x = (geom["width"] + 15) // 16
+    tiles_y = (geom["height"] + 15) // 16
+    if band is None:
+        return proj, tiles_x, tiles_y, 0
+    return proj, tiles_x, band[1], band[0]
+
+
+def _binning_case(case):
+    """The binning's card cases: real projections (a mip360-serve-sized
+    view, a training view, a band of it), the fly-in's top view (5.8M slots,
+    ~2 tiles a kept slot, hot centre tiles) and street level (long
+    rects), exact depth ties, no instances, and one gaussian over every
+    tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    if case == "serve":
+        return _projected_view("serve")
+    if case == "train":
+        return _projected_view("train")
+    if case == "band":
+        return _projected_view("serve", PROJ_BANDS["serve"])
+    if case == "flyin_top":
+        return (_synthetic_projection(5_800_000, 1920, 1080, 1,
+                                      _rect_sizes(1, 2)), 120, 68, 0)
+    if case == "street":
+        return (_synthetic_projection(66_000, 1920, 1080, 2,
+                                      _long_rect_sizes), 120, 68, 0)
+    if case == "ties":
+        depths = torch.randint(1, 4, (200_000,), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(
+                                   3)).float()
+        return (_synthetic_projection(200_000, 1237, 822, 3,
+                                      _rect_sizes(1, 4), depths=depths),
+                78, 52, 0)
+    if case == "band_synthetic":
+        return (_synthetic_projection(300_000, 1920, 1080, 4,
+                                      _rect_sizes(1, 6), band=(30, 17)),
+                120, 17, 30)
+    if case == "culled":
+        return (_synthetic_projection(10_000, 1237, 822, 5, _rect_sizes(1, 3),
+                                      culled=1.0), 78, 52, 0)
+    if case == "empty":
+        return (_synthetic_projection(0, 1237, 822, 6, _rect_sizes(1, 3)),
+                78, 52, 0)
+    assert case == "all_tiles"
+    proj = _synthetic_projection(1000, 1920, 1080, 7, _rect_sizes(1, 3))
+    proj.rect_min[17] = torch.tensor([0, 0], dtype=torch.int32)
+    proj.rect_max[17] = torch.tensor([120, 68], dtype=torch.int32)
+    proj.n_tiles[17] = 120 * 68
+    return proj, 120, 68, 0
+
+
+BINNING_CASES = ("serve", "train", "band", "flyin_top", "street", "ties",
+                 "band_synthetic", "culled", "empty", "all_tiles")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BINNING_CASES)
+def test_binning_kernels_match_plain_chain(case):
+    """expand_and_sort's two passes against expand_and_sort_plain on the
+    same card inputs: gauss_ids, tile_bounds, demand and n_vis equal; two
+    launches a call; the counters tile_instances and bin_card_instances
+    both the demand, and one read-back."""
+    proj, tiles_x, tiles_y, row0 = _binning_case(case)
+    before = tsort.launches
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = trz.expand_and_sort(proj, tiles_x, tiles_y, row0)
+    counts = {}
+    for c in trace.take().counts:
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    assert tsort.launches == before + 2
+    want = tsort.expand_and_sort_plain(proj, tiles_x, tiles_y, row0)
+    torch.cuda.synchronize()
+    assert tsort.launches == before + 2
+    assert counts == {"tile_instances": want.demand,
+                      "bin_card_instances": want.demand, "syncs": 1}
+    assert got.demand == want.demand
+    assert got.n_vis.dtype == want.n_vis.dtype == torch.int64
+    assert int(got.n_vis) == int(want.n_vis)
+    assert got.gauss_ids.dtype == got.tile_bounds.dtype == torch.int32
+    assert torch.equal(got.tile_bounds, want.tile_bounds)
+    assert torch.equal(got.gauss_ids, want.gauss_ids)
+    n = proj.depths.shape[0]
+    if case == "flyin_top":
+        assert n > 5_000_000 and want.demand > 7_000_000
+    elif case == "street":
+        assert want.demand > 10 * int(want.n_vis)
+        assert int(proj.n_tiles.max()) > 200
+    elif case in ("culled", "empty"):
+        assert want.demand == 0 and not bool(got.tile_bounds.any())
+    elif case == "all_tiles":
+        assert bool((got.tile_bounds[1:] > got.tile_bounds[:-1]).all())
+    elif case == "ties":
+        assert int(torch.unique(proj.depths).numel()) == 3
+    else:
+        assert want.demand > int(want.n_vis) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["dtype", "device", "columns"])
+def test_binning_wrapper_refuses_bad_inputs(fault):
+    """On CUDA tensors expand_and_sort raises on what its kernels do not
+    read, and launches nothing."""
+    proj, tiles_x, tiles_y, row0 = _binning_case("culled")
+    if fault == "dtype":
+        proj = proj._replace(rect_min=proj.rect_min.long())
+    elif fault == "device":
+        proj = proj._replace(n_tiles=proj.n_tiles.cpu())
+    else:
+        proj = proj._replace(rect_max=torch.cat(
+            [proj.rect_max, proj.rect_max], 1)[:, ::2])
+    before = tsort.launches
+    with pytest.raises(ValueError):
+        trz.expand_and_sort(proj, tiles_x, tiles_y, row0)
+    assert tsort.launches == before
 
 
 # ------------------------------------------------------------------ Adam

@@ -20,6 +20,8 @@ from contextgs_tpu.ops.rasterize.reference import \
 from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops.rasterize import projection as tproj
 from contextgs_tpu_torch.ops.rasterize import reference as tref
+from contextgs_tpu_torch.ops.rasterize import sorting as tsort
+from contextgs_tpu_torch.utils import trace
 
 from projection_cases import BRANCH_ROWS, branch_scene, grad_errors
 from projection_cases import cotangents as proj_cotangents
@@ -137,6 +139,88 @@ def test_expand_and_sort_matches_jax_lists(rng):
                                       err_msg=f"tile {t}")
     assert inst_t.demand == int(inst_j.demand) == bt[-1] > 0
     assert int(inst_t.n_vis) == int(inst_j.n_vis)
+
+
+def test_expand_and_sort_cpu_runs_the_plain_chain(rng):
+    """On CPU tensors expand_and_sort is the plain chain: no launch, the
+    chain's outputs, its three read-backs, no card counter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    means, scales, quats, _, opac = make_random_gaussians(
+        rng, 150, scale_range=(0.02, 0.3))
+    means[7] = means[8]                          # an exact depth tie
+    proj_j, _ = _jax_project_sort(W, H, True)(means, scales, quats, opac)
+    proj_t = _proj_to_torch(proj_j)
+    before = tsort.launches
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = trz.expand_and_sort(proj_t, TILES_X, TILES_Y)
+    counts = {}
+    for c in trace.take().counts:
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    want = tsort.expand_and_sort_plain(proj_t, TILES_X, TILES_Y)
+    assert tsort.launches == before
+    assert counts == {"tile_instances": want.demand, "syncs": 3}
+    assert got.demand == want.demand > 0
+    assert int(got.n_vis) == int(want.n_vis)
+    assert torch.equal(got.gauss_ids, want.gauss_ids)
+    assert torch.equal(got.tile_bounds, want.tile_bounds)
+
+
+@pytest.mark.parametrize("n_tiles,bits", [
+    (1, 1), (2, 1), (3, 2), (4056, 12), (8160, 13), (4080, 12),
+    (1 << 12, 12), ((1 << 12) + 1, 13), (1 << 13, 13), ((1 << 13) + 1, 14),
+    (1 << 20, 20), ((1 << 20) + 1, 21)])
+def test_tile_sort_bits(n_tiles, bits):
+    """The tile sort orders ceil(log2(n_tiles)) low bits (at least one):
+    every id in [0, n_tiles) fits them, and n_tiles - 1 needs the top one."""
+    assert tsort.tile_sort_bits(n_tiles) == bits
+    assert n_tiles - 1 < 1 << bits
+    if n_tiles > 1:
+        assert (n_tiles - 1) >> (bits - 1) == 1
+
+
+def _ranges_rule(keys, n_tiles):
+    """The ranges kernel's rule (csrc/binning.cu, ranges_kernel) in plain
+    PyTorch: boundary i in [0, B] writes i into every tile in
+    (keys[i-1], keys[i]], from tile 0 for i = 0 and up to n_tiles for
+    i = B."""
+    b = keys.numel()
+    bounds = torch.full((n_tiles + 1,), -1, dtype=torch.int32)
+    for i in range(b + 1):
+        lo = 0 if i == 0 else int(keys[i - 1]) + 1
+        hi = n_tiles if i == b else min(int(keys[i]), n_tiles)
+        bounds[lo:hi + 1] = i
+    return bounds
+
+
+@pytest.mark.parametrize("case", ["empty", "leading_empty", "trailing_empty",
+                                  "both_ends_empty", "one_tile", "every_tile",
+                                  "random"])
+def test_tile_ranges_rule_matches_bincount(case):
+    """The ranges rule gives the chain's tile_bounds (a zero, then the
+    cumsum of bincount) on sorted tile ids, where tiles are empty at the
+    start, at the end, everywhere or nowhere."""
+    n_tiles = 24
+    gen = torch.Generator().manual_seed(7)
+    draw = {"empty": (0, 0, 0), "leading_empty": (5, 24, 60),
+            "trailing_empty": (0, 17, 60), "both_ends_empty": (3, 20, 60),
+            "one_tile": (9, 10, 7), "every_tile": (0, 24, 0),
+            "random": (0, 24, 200)}[case]
+    lo, hi, n = draw
+    keys = torch.randint(lo, max(hi, lo + 1), (n,), generator=gen)
+    if case == "every_tile":
+        keys = torch.arange(n_tiles).repeat_interleave(
+            torch.randint(1, 4, (n_tiles,), generator=gen))
+    keys = torch.sort(keys).values
+    want = torch.zeros(n_tiles + 1, dtype=torch.int32)
+    want[1:] = torch.cumsum(torch.bincount(keys, minlength=n_tiles), 0)
+    got = _ranges_rule(keys, n_tiles)
+    assert torch.equal(got, want)
+    if case in ("leading_empty", "both_ends_empty"):
+        assert int(want[1]) == 0
+    if case in ("trailing_empty", "both_ends_empty"):
+        assert int(want[-2]) == keys.numel()
 
 
 @pytest.mark.parametrize("t_eps", [None, T_EPS * (1 - 2e-4), T_EPS * 30])

@@ -132,7 +132,9 @@ def phase_inputs(
     multi-level context quantization over all N anchors (`maps` gives the
     levels), noise of the predicted Q from `draws` (by default
     `context.context_draws` of `generator`) and the rate estimate in the
-    aux when training, STE rounding and no draws otherwise."""
+    aux when training, STE rounding and no draws otherwise. The noise and
+    context phases count their N rows into the trace counter
+    `context_rows`."""
     if phase not in ("plain", "noise", "context"):
         raise ValueError(f"unknown phase {phase!r}")
     anchor_q = st.get_anchor(params, buffers)
@@ -140,6 +142,8 @@ def phase_inputs(
     grid_scaling = st.get_scaling(params)
     grid_offsets = params.offsets
     aux = DecodeAux(rate=None, context=None)
+    if phase != "plain":
+        trace.count("context_rows", anchor_q.shape[0])
     if phase == "noise":
         feat = uniform_noise_quant(feat, cfg.q_feat, generator)
         grid_scaling = uniform_noise_quant(grid_scaling, cfg.q_scaling,

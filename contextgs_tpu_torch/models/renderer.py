@@ -83,7 +83,9 @@ def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
            scale_modifier=1.0) -> RenderOutput:
     """Render one view; differentiable in the parameters and `screen_dummy`
     ([N·K, 2], the densification hook). `generator` draws the noise and
-    context phases' noise; `maps` are the context phase's level maps."""
+    context phases' noise; `maps` are the context phase's level maps. The
+    anchors the cull keeps are counted into the trace counter
+    `render_visible_anchors`."""
     if pipe.tile_size != rz.TILE:
         raise ValueError(f"the port rasterizes {rz.TILE}x{rz.TILE} tiles, "
                          f"got pipe.tile_size={pipe.tile_size}")
@@ -97,6 +99,7 @@ def render(params: st.Params, buffers: st.Buffers, cfg: ModelConfig,
     nk = params.offsets.shape[0] * k
     with trace.sync("render.visible"):
         index = torch.nonzero(visible_mask).squeeze(1)
+    trace.count("render_visible_anchors", index.numel())
     slots = (index[:, None] * k + torch.arange(k, device=dev)).reshape(-1)
 
     with trace.span("render/decode"):

@@ -59,6 +59,12 @@ after every phase has held.
    tiles); float32 within scan.float_tolerance(N) · Σ|x| of a float64
    prefix, the worst share of that bound printed; K3's scratch left
    zeroed.
+   carry_check — the carry kernel (ops/csrc/carry.cu) bit-equal to the
+   plain chain (levels.segmented_carry_plain) in one launch a call, at the
+   city's sizes: a level map's 2.4M slots (int64), a densify round's 26.4M
+   keys (int32 flags; a start-free run to the end) and 26.4M keys each a
+   start (int64); each timed beside the chain by events and by the
+   profiler's device time, with its byte bound; its scratch left zeroed.
    k4_check — every level of K4 against its plain version and K1 on the
    golden cases, the cull cases and the kernel lab's 1x3600 table: v0
    exact, the sinks of v1 and v2 1e-5 relative, v3's sink (unscaled) and
@@ -1362,6 +1368,88 @@ def binning_check(where, sort_args):
           f"the binning's kernels equal to the plain chain in two launches, "
           f"{where}")
     return res
+
+
+# the carry's inputs at BungeeNeRF's training sizes (`bungeenerf-train`: 600k
+# anchors in 2.4M slots, K = 10): (name, keys, value type, keys that lead in
+# sorted order, share of them that start a group); the keys past the lead
+# are the sentinel group of free slots or dropped candidates, one start-free
+# run to the end. `dense` starts a group at every key: the bytes' worst case.
+CARRY_CASES = (("level_map_2.4M", 2_400_000, torch.int64, 600_000, 0.2),
+               ("round_26.4M", 26_400_000, torch.int32, 640_000, 0.5),
+               ("dense_26.4M", 26_400_000, torch.int64, 26_400_000, 1.0))
+
+
+def carry_inputs(n, dtype, lead, share, dev, seed):
+    """(is_start, values) of a carry case: a level map carries a permutation
+    of the slots (`order`), a round the 0/1 flags of anchors and candidates
+    (2.4M anchor slots first)."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    is_start = torch.zeros(n, dtype=torch.bool, device=dev)
+    is_start[:lead] = torch.rand(lead, generator=gen, device=dev) < share
+    is_start[0] = True
+    if lead < n:
+        is_start[lead] = True                 # the sentinel group
+    if dtype == torch.int64:
+        values = torch.randperm(n, generator=gen, device=dev)
+    else:
+        values = (torch.arange(n, device=dev) >= 2_400_000).to(dtype)
+    return is_start, values
+
+
+def carry_check(dev):
+    """The carry kernel (ops/csrc/carry.cu) against the plain chain
+    (levels.segmented_carry_plain: arange, where, torch.cummax, gather) at
+    the city's sizes: bit-equal, one launch a call; each timed by
+    `call_costs` (host time, kernels and device time a call, events), with
+    the kernel's bound from the bytes the case needs (flags, outputs, one
+    value read a start) and its worst case (every key a start: 17 bytes a
+    key with int64 values) at 3.35 TB/s."""
+    from contextgs_tpu_torch.models import levels
+    from contextgs_tpu_torch.ops import carry
+
+    out = {}
+    for i, (name, n, dtype, lead, share) in enumerate(CARRY_CASES):
+        is_start, values = carry_inputs(n, dtype, lead, share, dev, 40 + i)
+        before = carry.launches
+        got = levels.segmented_carry(is_start, values)
+        launches = carry.launches - before
+        want = levels.segmented_carry_plain(is_start, values)
+        size = values.element_size()
+        starts = int(is_start.sum())
+        n_bytes = n * (1 + size) + starts * size
+        res = dict(case=name, keys=n, dtype=str(dtype).replace("torch.", ""),
+                   starts=starts, equal=bool(torch.equal(got, want)),
+                   launches=launches, bytes=n_bytes,
+                   bound_ms=n_bytes / PEAK_HBM_BYTES * 1e3,
+                   worst_bound_ms=n * (1 + 2 * size) / PEAK_HBM_BYTES * 1e3,
+                   kernel=call_costs(
+                       lambda: levels.segmented_carry(is_start, values), 20),
+                   chain=call_costs(
+                       lambda: levels.segmented_carry_plain(is_start, values),
+                       5))
+        # one kernel a call: its time a launch, since the profiler may drop
+        # some events of back-to-back calls; where it caught none, the share
+        # is taken from the events' time a call
+        caught = res["kernel"]["kernels"] > 0
+        res["device_ms_a_launch"] = (res["kernel"]["device_ms"]
+                                     / res["kernel"]["kernels"]
+                                     if caught else None)
+        res["share_of_bound"] = res["bound_ms"] / (
+            res["device_ms_a_launch"] if caught
+            else res["kernel"]["events_ms"])
+        res["share_from"] = "device_ms_a_launch" if caught else "events_ms"
+        emit(phase="carry_check", **res)
+        check(res["equal"] and launches == 1,
+              f"the carry kernel equal to the plain chain in one launch, "
+              f"{name}")
+        out[name] = res
+        del is_start, values, got, want
+    torch.cuda.synchronize()
+    zeroed = all(not bool(buf.any()) for buf in carry._scratch.values())
+    emit(phase="carry_check", case="all", scratch_left_zeroed=zeroed)
+    check(zeroed, "the carry kernel leaves its scratch zeroed")
+    return out
 
 
 # bytes an element Adam's kernel must move: it reads p, g, m, v and writes
@@ -4068,7 +4156,7 @@ def main() -> int:
     from contextgs_tpu_torch.compression import coder
     from contextgs_tpu_torch.models import renderer as trenderer
     from contextgs_tpu_torch.models import state as tst
-    from contextgs_tpu_torch.ops import cuda_build, scan
+    from contextgs_tpu_torch.ops import carry, cuda_build, scan
     from contextgs_tpu_torch.ops.rasterize import projection as tproj
     from contextgs_tpu_torch.ops.rasterize import reference, tile_kernel
     from contextgs_tpu_torch.ops.rasterize import sorting as tsort
@@ -4094,7 +4182,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_build.build(tile_kernel.SOURCES + (scan.SOURCE, kvariants.SOURCE,
                                             xpose_lab.SOURCE, tproj.SOURCE,
-                                            tsort.SOURCE)
+                                            tsort.SOURCE, carry.SOURCE)
                      + (tuple(prev.values()) if prev else ())
                      + (tuple(prev_offset.values()) if prev_offset else ())
                      + tuple(knockouts.values())
@@ -4116,7 +4204,7 @@ def main() -> int:
          build_s=build_s, k1_ptxas=ptxas("blend_forward"),
          k2_ptxas=ptxas("blend_backward"), k3_ptxas=ptxas("scan"),
          k4_ptxas=ptxas("kvariants"), k56_ptxas=ptxas("xpose"),
-         projection_ptxas=ptxas("projection"),
+         projection_ptxas=ptxas("projection"), carry_ptxas=ptxas("carry"),
          binning_ptxas={name: lines for name, lines
                         in ptxas_kernels("binning").items()
                         if not name.startswith("_ZN3cub")},
@@ -4168,6 +4256,9 @@ def main() -> int:
     scan.launches = 0
     k3_err = check_k3(dev)
     k3_check_launches = scan.launches
+    carry.launches = 0
+    carry_res = carry_check(dev)
+    carry_check_launches = carry.launches
     for name, case in list(golden_cases(dev)) + list(cull_cases(dev)):
         check_k4(name, *case)
     tiles_x, tiles_y = kvariants.TILES_X, kvariants.TILES_Y
@@ -4432,9 +4523,11 @@ def main() -> int:
         scan.launches = 0
         tproj.launches = tproj.cull_launches = tproj.backward_launches = 0
         toptim.launches = 0
+        carry.launches = 0
         t_prev[0] = time.perf_counter()
         ts = tloop.train(tcfg, scene, callback=mark_step)
         torch.cuda.synchronize()
+        carry_train = carry.launches
         train_k1 = tile_kernel.launches
         train_k2 = tile_kernel.backward_launches
         k3_train = scan.launches
@@ -4479,7 +4572,7 @@ def main() -> int:
          anchors_final=int(ts.model.buffers.alive.sum()),
          capacity=int(ts.model.buffers.alive.shape[0]),
          k1_launches=train_k1, k2_launches=train_k2, k3_launches=k3_train,
-         adam_launches=adam_train,
+         adam_launches=adam_train, carry_launches=carry_train,
          ms_per_step_median={ph: split[ph]["step_ms_median"]
                              for ph in TRAIN_PHASES},
          split=split, densify=densified, peak_mem_gib=train_peak,
@@ -4495,6 +4588,10 @@ def main() -> int:
           "one projection, cull and backward launch a training step")
     check(adam_train == TRAIN_STEPS, "one Adam launch a training step")
     check(bin_train == 2 * TRAIN_STEPS, "two binning launches a training step")
+    check(carry_train == (tcfg.model.level_num - 1) * len(level_calls)
+          + tcfg.model.update_depth * len(densified),
+          "one carry launch a level above 0 of each level map and one a "
+          "depth of each densify round")
     proj_train_res = projection_check(
         "train_last_step_1280x720", proj_kept["call"], cull_kept["call"], dev,
         backward_seed=60)
@@ -4846,6 +4943,24 @@ def main() -> int:
         bound_term=cdf["bound_by"], library_ms=None,
         wrapper_ms=cdf["wrapper_ms"], calls=cdf["calls"],
         symbols=cdf["symbols"], shape="the first codec encode's calls"))
+    carry_main = carry_res["round_26.4M"]
+    kernels.append(dict(
+        name="carry", route="cuda",
+        source="contextgs_tpu_torch/ops/csrc/carry.cu", replaces=None,
+        replaces_xla="contextgs_tpu/models/levels.py::segmented_carry",
+        launches=carry_train + carry_check_launches,
+        launches_by_path=dict(train=carry_train, check=carry_check_launches),
+        max_abs_err=0.0,
+        ms=carry_main["kernel"]["events_ms"],
+        card_ms=carry_main["device_ms_a_launch"],
+        plain_ms=carry_main["chain"]["events_ms"],
+        plain_device_ms=carry_main["chain"]["device_ms"],
+        bound_ms=carry_main["bound_ms"], bound_by="bytes",
+        bound_term="bytes", library_ms=None,
+        wrapper_ms=carry_main["kernel"]["host_ms"],
+        level_map_card_ms=carry_res["level_map_2.4M"]["device_ms_a_launch"],
+        level_map_plain_ms=carry_res["level_map_2.4M"]["chain"]["events_ms"],
+        shape="a densify round's 26.4M keys at the city's size"))
     kernels += lab_kernels
     emit(phase="done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

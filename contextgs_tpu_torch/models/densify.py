@@ -55,11 +55,12 @@ def accumulate_stats(buffers: Buffers, neural_opacity: torch.Tensor,
 
 
 def _sorted_groups(keys3: torch.Tensor, valid: torch.Tensor,
-                   prio: torch.Tensor):
+                   prio: torch.Tensor, with_leader_prio: bool = False):
     """Group elements by voxel key; return per element (group_id,
-    is_group_leader, leader_prio). Groups are numbered in lexicographic key
-    order, the leader is the member with the smallest `prio`, and invalid
-    elements form one sentinel group."""
+    is_group_leader, leader_prio); leader_prio is carried only
+    `with_leader_prio`, and is None otherwise. Groups are numbered in
+    lexicographic key order, the leader is the member with the smallest
+    `prio`, and invalid elements form one sentinel group."""
     n = keys3.shape[0]
     keys = torch.where(valid[:, None], keys3, 2 ** 30)
     order = torch.arange(n, device=keys3.device)
@@ -72,6 +73,8 @@ def _sorted_groups(keys3: torch.Tensor, valid: torch.Tensor,
     gid[order] = torch.cumsum(new_group, 0) - 1
     is_leader = torch.empty_like(new_group)
     is_leader[order] = new_group
+    if not with_leader_prio:
+        return gid, is_leader, None
     leader_prio = torch.empty_like(prio)
     leader_prio[order] = segmented_carry(new_group, prio[order])
     return gid, is_leader, leader_prio
@@ -89,7 +92,7 @@ def _voxel_occupied(cand_keys: torch.Tensor, cand_valid: torch.Tensor,
                    device=cand_keys.device)])
     _, _, leader_flag = _sorted_groups(
         torch.cat([anchor_keys, cand_keys]),
-        torch.cat([anchor_valid, cand_valid]), flag)
+        torch.cat([anchor_valid, cand_valid]), flag, with_leader_prio=True)
     return (leader_flag[na:] == 0) & cand_valid
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from contextgs_tpu_torch.ops import carry
 from contextgs_tpu_torch.utils import trace
 
 _SENTINEL = 2 ** 30        # the voxel key of invalid slots
@@ -35,15 +36,33 @@ class LevelMaps(NamedTuple):
     counts: torch.Tensor    # [level_num] anchors whose level == i
 
 
-def segmented_carry(is_start: torch.Tensor,
-                    values: torch.Tensor) -> torch.Tensor:
-    """Forward-fill `values` from segment starts: out[i] = values[j] for the
-    latest j ≤ i with is_start[j], and values[0] before the first start, as
-    the reference's associative scan gives."""
+def segmented_carry_plain(is_start: torch.Tensor,
+                          values: torch.Tensor) -> torch.Tensor:
+    """The plain version of `segmented_carry`, which CPU tensors take: the
+    last start at or before each key by `torch.cummax` over the start
+    indices, then a gather."""
     n = is_start.shape[0]
     idx = torch.arange(n, device=is_start.device)
     last_start = torch.cummax(torch.where(is_start, idx, 0), 0).values
     return values[last_start]
+
+
+def segmented_carry(is_start: torch.Tensor,
+                    values: torch.Tensor) -> torch.Tensor:
+    """Forward-fill `values` from segment starts: out[i] = values[j] for the
+    latest j ≤ i with is_start[j], and values[0] before the first start, as
+    the reference's associative scan gives. On CUDA tensors one launch of
+    the carry kernel (`ops/carry.py`), on CPU tensors `segmented_carry_plain`;
+    either raises on what the kernel does not take (`carry.check`). Every
+    call adds its keys to the trace counter `carry_keys`, a kernel call to
+    `carry_card_keys` too."""
+    if is_start.device.type == "cuda":
+        out = carry.segmented_carry(is_start, values)
+        trace.count("carry_keys", out.shape[0])
+        trace.count("carry_card_keys", out.shape[0])
+        return out
+    trace.count("carry_keys", carry.check(is_start, values))
+    return segmented_carry_plain(is_start, values)
 
 
 def _voxel_unique_representative(keys: torch.Tensor, valid: torch.Tensor):

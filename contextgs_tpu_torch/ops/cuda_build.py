@@ -110,6 +110,20 @@ def raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
+def scratch(store: dict, device: torch.device, words: int) -> torch.Tensor:
+    """The zeroed scratch a single-pass scan keeps in `store` for the current
+    stream of `device`, at least `words` 64-bit words long. A new, larger one
+    replaces it when needed (the old one is freed in stream order, after the
+    launches that use it). Each launch leaves its scratch zeroed again and
+    launches on one stream run in order, so no call zeroes it."""
+    key = (device.index, raw_stream(device.index))
+    buf = store.get(key)
+    if buf is None or buf.numel() < words:
+        buf = store[key] = torch.zeros(max(words, 1024), dtype=torch.int64,
+                                       device=device)
+    return buf
+
+
 def launch(fn, device: torch.device, *args) -> int:
     """fn(*args, stream) with the raw handle of `device`'s current stream,
     `device` made current for the call only where it is not already;

@@ -35,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-from contextgs_tpu_torch.ops.cuda_build import c_function, launch, raw_stream
+from contextgs_tpu_torch.ops.cuda_build import c_function, launch, scratch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "scan.cu"
 BLOCK = 8192          # elements a CUDA block scans, a tile
@@ -65,18 +65,6 @@ def lane_cumsum_reference(x: torch.Tensor,
     return out
 
 
-def _scratch_for(device: torch.device, words: int) -> torch.Tensor:
-    """K3's zeroed scratch for the current stream of `device`, at least
-    `words` 64-bit words long (a new, larger one replaces it when needed:
-    the old one is freed in stream order, after the launches that use it)."""
-    key = (device.index, raw_stream(device.index))
-    buf = _scratch.get(key)
-    if buf is None or buf.numel() < words:
-        buf = _scratch[key] = torch.zeros(max(words, 1024), dtype=torch.int64,
-                                          device=device)
-    return buf
-
-
 def lane_cumsum(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
     """Prefix sum along the last axis of x [R, N] or [N]."""
     global launches
@@ -104,11 +92,11 @@ def lane_cumsum(x: torch.Tensor, exclusive: bool = False) -> torch.Tensor:
         raise ValueError(f"lane_cumsum: at most {MAX_ROWS} rows, got {r}")
     out = torch.empty_like(x)
     if r and n:
-        scratch = _scratch_for(device, r * -(-n // BLOCK) + 1)
+        words = scratch(_scratch, device, r * -(-n // BLOCK) + 1)
         fn = c_function(SOURCE, "lane_cumsum_f32" if dtype == torch.float32
                         else "lane_cumsum_i32", ARGTYPES)
         err = launch(fn, device, x.data_ptr(), out.data_ptr(),
-                     scratch.data_ptr(), r, n, int(exclusive))
+                     words.data_ptr(), r, n, int(exclusive))
         if err != 0:
             raise RuntimeError(f"lane_cumsum: kernel launch failed with CUDA "
                                f"error {err}")

@@ -29,6 +29,7 @@ from contextgs_tpu_torch.models import levels as tlev
 from contextgs_tpu_torch.models import state as tst
 from contextgs_tpu_torch.train import optim as toptim
 from contextgs_tpu_torch.train import step as tstep
+import carry_cases
 from test_torch_train import (W, H, _assert_close_to_max, _jax_leaves,
                               _np_tree, _render_targets, _scene_cameras, _t)
 
@@ -227,6 +228,28 @@ def test_own_init_param_leaves_match_jax_tree():
 
 
 # --------------------------------------------------------------- levels
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("pattern", carry_cases.PATTERNS + ("long_run",))
+def test_segmented_carry_matches_jax(rng, pattern, dtype):
+    """The port's CPU path (`segmented_carry_plain`) against the reference's
+    associative scan, int64 values under JAX's 64-bit mode: equal integers,
+    and values[0] before the first start."""
+    n = 12 * carry_cases.TILE + 5
+    starts = (carry_cases.long_run(n, rng) if pattern == "long_run"
+              else carry_cases.starts(pattern, n, rng))
+    values = carry_cases.values(n, dtype, rng)
+    with jax.enable_x64(dtype == np.int64):
+        want = np.asarray(jax.jit(jlev.segmented_carry)(
+            jnp.asarray(starts), jnp.asarray(values)))
+    assert want.dtype == dtype
+    got = tlev.segmented_carry(torch.from_numpy(starts),
+                               torch.from_numpy(values))
+    assert got.dtype == torch.from_numpy(values).dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    if not starts[0]:
+        assert (got[:int(np.argmax(starts)) or n] == int(values[0])).all()
+
 
 @pytest.mark.parametrize("kept_stricter", [False, True])
 def test_build_level_maps_matches_jax_exactly(rng, kept_stricter):

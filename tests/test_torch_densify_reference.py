@@ -5,8 +5,9 @@ alive anchors at the published widths (K 10, 3 depths). A round of
 `adjust_anchors` with the reference's own draws gives the reference's
 anchors bit for bit as a set, every field, Adam moment and statistic; a
 pool that overflows places a part of the reference's growth; the
-statistics and a plain-phase step agree; and a traced round records its
-spans and counters."""
+statistics and a plain-phase step agree; a round carries leader values
+for the occupied-voxel grouping only; and a traced round records its spans
+and counters."""
 
 import dataclasses
 import json
@@ -102,6 +103,19 @@ def test_adjust_anchors_matches_the_reference(case):
     assert (grown > 0) == case["grow"] and (pruned > 0) == case["prune"]
     assert not bool(res.overflowed)
     assert int(after["alive"].sum()) == 300 + grown - pruned
+
+
+def test_a_round_carries_only_the_occupied_voxels_grouping():
+    """A round runs one carry a depth, the joint grouping of anchors and
+    candidates that finds occupied voxels (N + N·K keys); the candidate
+    grouping, which reads no leader value, runs none."""
+    params, buffers, adam, draws = _round_inputs(7)
+    n, k = params.offsets.shape[:2]
+    trace.take()
+    with profile():
+        _round(params, buffers, adam, draws)
+    carried = [c.n for c in trace.take().counts if c.name == "carry_keys"]
+    assert carried == [n + n * k] * 3
 
 
 def test_an_overflowing_pool_places_part_of_the_reference_growth():

@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 (tile-blend forward), K2 (its backward), K3
 (the lane prefix sum), K4 (the forward's five stages), K5/K6 (the slab
 transposes), the projection's three (forward, cull, backward), the tile
-binning's two passes and Adam's against their plain versions, the codec's
+binning's two passes, Adam's and the segmented carry's against their plain
+versions, the codec's
 CDF rows against theirs, and the codec's round trip on the card.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
@@ -26,7 +27,9 @@ from contextgs_tpu_torch.compression import cdf_rows as tcdf
 from contextgs_tpu_torch.compression import codec as tcodec
 from contextgs_tpu_torch.compression import coder as tcoder
 from contextgs_tpu_torch.config import ModelConfig, OptimizationConfig
+from contextgs_tpu_torch.models import levels as tlev
 from contextgs_tpu_torch.models import state as tst
+from contextgs_tpu_torch.ops import carry as tcarry
 from contextgs_tpu_torch.ops import rasterize as trz
 from contextgs_tpu_torch.ops import scan as tscan
 from contextgs_tpu_torch.ops.rasterize import projection as tproj
@@ -44,6 +47,7 @@ from contextgs_tpu_torch.train import loop as tloop
 from contextgs_tpu_torch.train import optim as toptim
 from contextgs_tpu_torch.utils import trace
 
+import carry_cases
 import projection_cases
 
 torch.set_num_threads(1)
@@ -1911,3 +1915,164 @@ def test_adam_kernel_matches_the_op_chain(case, capacity):
                 assert got.shape == want.shape, (name, what)
                 diff = int((_int_bits(got) != _int_bits(want)).sum())
                 assert diff == 0, f"call {call}: {name}.{what}: {diff} differ"
+
+
+# ------------------------------------------------------- the segmented carry
+
+CARRY_SIZES = (1, 2, carry_cases.TILE - 1, carry_cases.TILE,
+               carry_cases.TILE + 1, 5 * carry_cases.TILE + 17, 3_000_000)
+CARRY_CASES = ([(n, p) for n in CARRY_SIZES for p in carry_cases.PATTERNS]
+               + [(12 * carry_cases.TILE + 5, "long_run"),
+                  (3_000_000, "long_run"),
+                  (5 * carry_cases.TILE + 17, "misaligned")])
+CARRY_FAULTS = ("float_values", "int_flags", "lengths", "two_dims",
+                "non_contiguous", "mixed_devices", "meta_device",
+                "too_many_keys")
+
+
+def _carry_inputs(n, pattern, dtype, device, seed=0):
+    """(is_start, values) of a case on `device`; `misaligned` flags are a
+    view 1 byte past their allocation's start, which takes the kernel's
+    scalar edge."""
+    rng = np.random.default_rng(seed)
+    if pattern == "long_run":
+        starts = carry_cases.long_run(n, rng)
+    else:
+        starts = carry_cases.starts(
+            "half" if pattern == "misaligned" else pattern, n, rng)
+    is_start = torch.from_numpy(starts).to(device)
+    if pattern == "misaligned":
+        is_start = torch.cat([is_start[:1], is_start])[1:]
+        assert is_start.data_ptr() % 16 != 0 and is_start.is_contiguous()
+    values = torch.from_numpy(carry_cases.values(n, dtype, rng)).to(device)
+    return is_start, values
+
+
+def _carry_fault(fault, device):
+    """(is_start, values) that the carry refuses."""
+    is_start, values = _carry_inputs(1000, "one_percent", np.int64, device)
+    if fault == "float_values":
+        return is_start, values.double()
+    if fault == "int_flags":
+        return is_start.to(torch.int32), values
+    if fault == "lengths":
+        return is_start, values[:-1]
+    if fault == "two_dims":
+        return is_start.reshape(10, 100), values.reshape(10, 100)
+    if fault == "non_contiguous":
+        return is_start, torch.stack([values, values], 1)[:, 0]
+    if fault == "mixed_devices":
+        return is_start, values.to("meta" if device.type == "cpu" else "cpu")
+    if fault == "meta_device":
+        return is_start.to("meta"), values.to("meta")
+    n = tcarry.MAX_KEYS + 1             # views of one element: no memory
+    return (is_start[:1].expand(n), values[:1].expand(n))
+
+
+def _carry_counts(fn):
+    trace.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    counts = {}
+    for c in trace.take().counts:
+        counts[c.name] = counts.get(c.name, 0) + c.n
+    return out, counts
+
+
+@pytest.mark.parametrize("fault", CARRY_FAULTS)
+def test_segmented_carry_refuses_what_the_kernel_does_not_take(fault):
+    """Both paths take the same inputs: on CPU tensors `segmented_carry`
+    raises on what the kernel would refuse, and launches nothing."""
+    is_start, values = _carry_fault(fault, torch.device("cpu"))
+    before = tcarry.launches
+    with pytest.raises(ValueError):
+        tlev.segmented_carry(is_start, values)
+    assert tcarry.launches == before
+
+
+def test_carry_kernel_refuses_cpu_tensors():
+    """The kernel's wrapper takes CUDA tensors only; the CPU path is the
+    plain version's, chosen by `levels.segmented_carry`."""
+    is_start, values = _carry_inputs(100, "half", np.int32, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tcarry.segmented_carry(is_start, values)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_segmented_carry_counts_its_keys_on_the_cpu(dtype):
+    """Under a recording profiler a CPU call adds its keys to `carry_keys`
+    and none to `carry_card_keys`; it equals the plain version."""
+    is_start, values = _carry_inputs(20_000, "one_percent", dtype, "cpu")
+    got, counts = _carry_counts(lambda: tlev.segmented_carry(is_start,
+                                                             values))
+    assert counts == {"carry_keys": 20_000}
+    assert torch.equal(got, tlev.segmented_carry_plain(is_start, values))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("n,pattern", CARRY_CASES)
+def test_carry_kernel_matches_plain_version(n, pattern, dtype):
+    """`levels.segmented_carry` on CUDA tensors launches the kernel once and
+    is bit-equal to `segmented_carry_plain` on the same card: sizes of 1, 2,
+    a tile and one key either side of it, several tiles and 3M keys; every
+    key a start, key 0 alone, key 0 not a start, 1% and half; start-free
+    runs of 9 and 363 tiles; flags off a 16-byte boundary. Its keys are
+    counted in `carry_keys` and `carry_card_keys`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    is_start, values = _carry_inputs(n, pattern, dtype, torch.device("cuda"),
+                                     seed=n)
+    before = tcarry.launches
+    got, counts = _carry_counts(lambda: tlev.segmented_carry(is_start,
+                                                             values))
+    assert tcarry.launches == before + 1
+    assert counts == {"carry_keys": n, "carry_card_keys": n}
+    want = tlev.segmented_carry_plain(is_start, values)
+    torch.cuda.synchronize()
+    assert got.dtype == values.dtype and got.shape == values.shape
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.cuda
+def test_carry_kernel_leaves_its_scratch_zeroed():
+    """The kernel's scratch is kept per stream and never zeroed by the
+    wrapper: back-to-back calls of other sizes and both value types, on the
+    default stream and on another, each find it zeroed and leave it so."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for k, (n, pattern, dtype) in enumerate((
+                    (3_000_000, "one_percent", np.int64),
+                    (10, "half", np.int32),
+                    (12 * carry_cases.TILE + 5, "long_run", np.int32),
+                    (1, "every", np.int64),
+                    (200_003, "first_not_start", np.int64))):
+                is_start, values = _carry_inputs(n, pattern, dtype,
+                                                 torch.device("cuda"), k)
+                got = tcarry.segmented_carry(is_start, values)
+                assert torch.equal(
+                    got, tlev.segmented_carry_plain(is_start, values))
+        torch.cuda.synchronize()
+        assert all(not bool(buf.any()) for buf in tcarry._scratch.values())
+    assert len(tcarry._scratch) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ("float_values", "int_flags", "lengths",
+                                   "non_contiguous", "mixed_devices"))
+def test_carry_kernel_refuses_bad_inputs(fault):
+    """On CUDA tensors the wrapper raises on what the kernel does not take
+    (another value or flag type, mismatched lengths, a non-contiguous view,
+    a CPU tensor beside a CUDA one) and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run this file on the GPU machine")
+    is_start, values = _carry_fault(fault, torch.device("cuda"))
+    before = tcarry.launches
+    with pytest.raises(ValueError):
+        tlev.segmented_carry(is_start, values)
+    with pytest.raises(ValueError):
+        tcarry.segmented_carry(is_start, values)
+    assert tcarry.launches == before

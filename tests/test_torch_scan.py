@@ -98,7 +98,7 @@ def test_lane_cumsum_cpu_never_touches_the_c_library(rng, monkeypatch,
 
     from contextgs_tpu_torch.ops import cuda_build
     for module, name in ((tscan, "c_function"), (tscan, "launch"),
-                         (tscan, "raw_stream"),
+                         (tscan, "scratch"), (cuda_build, "raw_stream"),
                          (cuda_build, "c_function"),
                          (cuda_build, "load_library"), (cuda_build, "build")):
         monkeypatch.setattr(module, name, refuse)
